@@ -8,6 +8,8 @@ setup(
         "(JAX/XLA/Pallas rebuild of the NeurIPS-CellSeg baseline capabilities)"
     ),
     packages=find_packages(exclude=("tests",)),
+    # the PyTorch/CUDA port builds its kernels from these sources
+    package_data={"cellseg_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",
