@@ -2,9 +2,11 @@
 
 `python -m cellseg_tpu_torch.cli.predict -i <input dir> -o <output dir>`
 reads every image in the input directory, runs normalization, the
-sliding-window UNet and the CC decode on the card, and writes
-`{stem}_label.tiff` instance maps. Flags follow cellseg_tpu.cli.predict,
-plus --device (default cuda; cpu runs the plain PyTorch path).
+sliding-window UNet and the decode (CC, or --decode boundary_watershed
+with --ws_route plain or stripe; --tta averages the 8 dihedral views) on
+the card, and writes `{stem}_label.tiff` instance maps. Flags follow
+cellseg_tpu.cli.predict, plus --device (default cuda; cpu runs the plain
+PyTorch path) and --ws_route.
 """
 
 from __future__ import annotations
@@ -55,12 +57,18 @@ def main(argv=None):
     parser.add_argument("--decode", default="cc",
                         choices=["cc", "boundary_watershed"],
                         help="cc = reference parity (CC on interior); "
-                             "boundary_watershed is not ported yet")
+                             "boundary_watershed = seeded split of "
+                             "touching cells")
+    parser.add_argument("--ws_route", default="plain",
+                        choices=["plain", "stripe"],
+                        help="boundary watershed's route: plain = the JAX "
+                             "package's labels off the TPU; stripe = its "
+                             "block-local route on the TPU")
     parser.add_argument("--overlap", default=0.25, type=float,
                         help="sliding-window tile overlap fraction")
     parser.add_argument("--tta", action="store_true",
-                        help="dihedral test-time augmentation (not ported "
-                             "yet)")
+                        help="dihedral test-time augmentation (8x forward "
+                             "cost)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     parser.add_argument("-h", "--help", action="help")
@@ -79,7 +87,7 @@ def main(argv=None):
                   else int(args.sw_batch_size)),
         num_class=args.num_class, bucket=args.bucket, mode=args.blend,
         overlap=args.overlap, decode=args.decode, tta=args.tta,
-        device=args.device)
+        ws_route=args.ws_route, device=args.device)
 
     os.makedirs(args.output_path, exist_ok=True)
     for img_name in list_images(args.input_path):

@@ -1,11 +1,12 @@
 """Whole-image instance prediction on the card (port of
-cellseg_tpu/infer/predictor.py, decode="cc").
+cellseg_tpu/infer/predictor.py).
 
 Per image: pad bottom/right to a shape bucket, then three stages on the
 device: percentile normalization with the channel fixup and /max scaling,
-the sliding-window forward with softmax, and the CC decode of the
-interior probability (pad region masked out). Only the uint16 label map
-comes back to the host.
+the sliding-window forward with softmax (optionally averaged over the 8
+dihedral views), and the decode (pad region masked out): the CC decode of
+the interior probability, or the boundary watershed of the interior and
+boundary probabilities. Only the uint16 label map comes back to the host.
 """
 
 from __future__ import annotations
@@ -13,9 +14,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..decode.threeclass import decode_interior_prob
+from ..decode.threeclass import (
+    decode_boundary_watershed,
+    decode_interior_prob,
+)
 from ..device import resolve_device, set_f32_precision
 from ..io.images import to_hwc_raw
+from ..ops.watershed import ROUTES
 from ..pipeline.normalize import normalize_image_torch
 from .sliding_window import (
     balanced_sw_batch,
@@ -47,19 +52,28 @@ class Predictor:
     model: a callable (B, roi, roi, 3) NHWC float32 -> (B, roi, roi,
     num_class) logits, usually the port's UNet; an nn.Module is moved to
     `device` and put in eval mode. Float32 throughout, with TF32 off on
-    the card (device.set_f32_precision)."""
+    the card (device.set_f32_precision).
+
+    decode: "cc" (the reference's CC on the interior) or
+    "boundary_watershed" (decode/threeclass.py:decode_boundary_watershed).
+    ws_route: the boundary watershed's route to its fixed point, "plain"
+    (the JAX package's off the TPU, which its tests check) or "stripe"
+    (its route on the TPU); ops/watershed.py.
+    tta: average the softmax over the 8 flip/rot90 views before decoding
+    (8 forwards)."""
 
     def __init__(self, model, roi: int = 256, sw_batch: int | str = "auto",
                  overlap: float = 0.25, num_class: int = 3,
                  mode: str = "constant", bucket: int = 256,
                  normalize: bool = True, decode: str = "cc",
-                 tta: bool = False, device: str | torch.device = "cuda"):
-        if decode != "cc":
-            raise NotImplementedError(
-                f"decode={decode!r} is not ported yet: ROADMAP item A8")
-        if tta:
-            raise NotImplementedError(
-                "tta is not ported yet: ROADMAP item A8")
+                 tta: bool = False, ws_route: str = "plain",
+                 device: str | torch.device = "cuda"):
+        if decode not in ("cc", "boundary_watershed"):
+            raise ValueError(f"unknown decode {decode!r}: cc or "
+                             f"boundary_watershed")
+        if ws_route not in ROUTES:
+            raise ValueError(f"unknown watershed route {ws_route!r}: "
+                             f"{' or '.join(ROUTES)}")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             set_f32_precision()
@@ -73,6 +87,9 @@ class Predictor:
         self.mode = mode
         self.bucket = bucket
         self.normalize = normalize
+        self.decode = decode
+        self.tta = tta
+        self.ws_route = ws_route
 
     def stage_norm(self, padded: torch.Tensor) -> torch.Tensor:
         """Raw (H, W, C) pixels -> model-ready float32 (H, W, 3) in [0, 1]."""
@@ -96,23 +113,54 @@ class Predictor:
                    * len(tile_origins(pw, self.roi, self.overlap)))
         return balanced_sw_batch(n_tiles)
 
-    def stage_forward(self, np01: torch.Tensor) -> torch.Tensor:
-        """(H, W, 3) -> (H, W) softmax probability of the interior class."""
+    def _probs(self, np01: torch.Tensor) -> torch.Tensor:
         ph, pw = np01.shape[:2]
         logits = sliding_window_inference(
             self.model, np01, roi=self.roi, sw_batch=self._sw_batch(ph, pw),
             overlap=self.overlap, out_channels=self.num_class,
             mode=self.mode)
-        return torch.softmax(logits, dim=-1)[..., 1]
+        return torch.softmax(logits, dim=-1)
 
-    def stage_decode(self, interior: torch.Tensor, true_h: int,
+    def stage_forward(self, np01: torch.Tensor) -> torch.Tensor:
+        """(H, W, 3) -> softmax probability of the interior class (H, W),
+        or of the interior and boundary classes (H, W, 2) for the boundary
+        watershed."""
+        if self.tta:
+            # the 8 dihedral views in the JAX package's order, each
+            # inverse-mapped; rot90 of a non-square canvas is its own tiling
+            acc = None
+            for k in range(4):
+                for flip in (False, True):
+                    xt = torch.rot90(np01, k, dims=(0, 1))
+                    if flip:
+                        xt = torch.flip(xt, dims=(1,))
+                    pt = self._probs(xt)
+                    if flip:
+                        pt = torch.flip(pt, dims=(1,))
+                    pt = torch.rot90(pt, -k, dims=(0, 1))
+                    acc = pt if acc is None else acc + pt
+            probs = acc / 8.0
+        else:
+            probs = self._probs(np01)
+        if self.decode == "boundary_watershed":
+            return probs[..., 1:3]
+        return probs[..., 1]
+
+    def stage_decode(self, fwd_out: torch.Tensor, true_h: int,
                      true_w: int) -> torch.Tensor:
-        """Interior probability -> uint16 labels; the pad is background."""
-        interior = interior.clone()
-        interior[true_h:] = 0.0
-        interior[:, true_w:] = 0.0
+        """stage_forward's probabilities -> uint16 labels; the pad is
+        background."""
+        fwd_out = fwd_out.clone()
+        fwd_out[true_h:] = 0.0
+        fwd_out[:, true_w:] = 0.0
+        if self.decode == "boundary_watershed":
+            labels = decode_boundary_watershed(fwd_out[..., 0].contiguous(),
+                                               fwd_out[..., 1].contiguous(),
+                                               route=self.ws_route)
+        else:
+            labels = decode_interior_prob(fwd_out)
         # uint16 halves the transfer to the host; cell counts stay < 65k
-        return decode_interior_prob(interior).to(torch.uint16)
+        return labels.to(torch.uint16)
 
     def pad(self, img: np.ndarray):
         """Raw image -> (zero-padded (ph, pw, C) array, h, w), padded
@@ -128,12 +176,12 @@ class Predictor:
 
     @torch.inference_mode()
     def predict_device(self, img: np.ndarray):
-        """(uint16 labels (ph, pw), interior probability (ph, pw), h, w),
+        """(uint16 labels (ph, pw), stage_forward's probabilities, h, w),
         all on the device."""
         padded, h, w = self.pad(img)
         x = torch.from_numpy(padded).to(self.device)
-        interior = self.stage_forward(self.stage_norm(x))
-        return self.stage_decode(interior, h, w), interior, h, w
+        probs = self.stage_forward(self.stage_norm(x))
+        return self.stage_decode(probs, h, w), probs, h, w
 
     def predict(self, img: np.ndarray) -> np.ndarray:
         """Raw image (H, W[, C]) or page stack (N, H, W) -> int32 instance

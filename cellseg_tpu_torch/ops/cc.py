@@ -9,7 +9,8 @@ raster order, so sequential ids reproduce scipy/skimage label order.
 
 What the JAX package did only because of TPU costs is not carried over:
 the relabel tails here are one cumsum and one gather instead of a seeded
-propagation, and the block-local (local_cc) and coarse-seed routes are
+propagation, the area filters are a labeling plus one bincount instead
+of sorts, and the block-local (local_cc) and coarse-seed routes are
 absent. Every propagation loop checks convergence on the host once per
 iteration.
 """
@@ -170,3 +171,13 @@ def sequential_from_ranks(lab_ranks: torch.Tensor, r_plane: torch.Tensor,
     hist = torch.bincount(ranks[is_rep], minlength=1)
     table = torch.cumsum(hist, 0).to(torch.int32)
     return torch.where(mask, table[ranks], 0)
+
+
+def remove_small_objects_torch(mask: torch.Tensor, min_size: int = 16,
+                               connectivity: int = 1) -> torch.Tensor:
+    """Drop components with area < min_size (remove_small_objects_jax):
+    one labeling, then one bincount over the mask's pixels only (the
+    background's would all pile onto bin 0)."""
+    lab = label_components(mask, connectivity).long()
+    counts = torch.bincount(lab[mask], minlength=1)
+    return mask & (counts[lab] >= min_size)

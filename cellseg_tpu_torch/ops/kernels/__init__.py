@@ -1,16 +1,19 @@
 """Hand-written CUDA kernels of the port, each beside its plain version.
 
-| module    | kernel                                         | replaces                        |
-|-----------|------------------------------------------------|---------------------------------|
-| scans.py  | row_segmented_min_scan, col_segmented_min_scan | ops/pallas/scans.py (B1, B2)    |
-| sweeps.py | fused_sweeps                                   | ops/pallas/sweeps.py (B3)       |
+| module       | kernel                                         | replaces                        |
+|--------------|------------------------------------------------|---------------------------------|
+| scans.py     | row_segmented_min_scan, col_segmented_min_scan | ops/pallas/scans.py (B1, B2)    |
+| sweeps.py    | fused_sweeps                                   | ops/pallas/sweeps.py (B3)       |
+| ws_local.py  | stripe_ws_converge                             | ops/pallas/ws_local.py (B5)     |
+| ws_sweeps.py | fused_ws_sweeps                                | ops/pallas/ws_sweeps.py (B6)    |
 """
 
 from __future__ import annotations
 
-from . import scans, sweeps
+from . import scans, sweeps, ws_local, ws_sweeps
 
-_COUNTERS = (scans.LAUNCHES, sweeps.LAUNCHES)
+_COUNTERS = (scans.LAUNCHES, sweeps.LAUNCHES, ws_local.LAUNCHES,
+             ws_sweeps.LAUNCHES)
 
 
 def launch_counts() -> dict[str, int]:

@@ -4,14 +4,19 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from `cellseg_tpu_torch/csrc/`, checks each
-against its plain PyTorch version, and drives the port's main path once:
-the trained 3-class UNet predictor (normalize -> sliding-window forward ->
-softmax -> CC decode) on a 2048x2048 synthetic slide. Every phase raises
-on failure. Output, in order: the card and toolchain, per-kernel checks
-and times, the labyrinth labeling, the forward parity, the main path's
-stage times, kernel launch counts and a profile of each stage, then
-one JSON line of per-kernel numbers, the card's name and power limit,
-and the `ok` line last.
+against its plain PyTorch version, and drives the port's paths once: the
+trained 3-class UNet predictor (normalize -> sliding-window forward ->
+softmax -> decode) on a 2048x2048 synthetic slide, first with the CC
+decode (the main path), then with the boundary-watershed decode on the
+watershed's plain route, a dihedral-TTA prediction of a 512x512 crop, and
+the boundary-watershed decode once more on the stripe route (the JAX
+package's route on the TPU). Every phase raises on failure. Output, in
+order: the card and toolchain, per-kernel checks and times, the labyrinth
+labeling, the forward parity, each path's stage times, kernel launch
+counts and a profile of each stage, the instance F1 of the decoders
+against the slide's ground truth, the TTA check, then one JSON line of
+per-kernel numbers, the card's name and power limit, and the `ok` line
+last.
 
 Needs one CUDA device and the repository beside this file; exits nonzero
 without either. Imports nothing of JAX or of the JAX package.
@@ -41,12 +46,31 @@ TPU_KERNELS = {
     "row_segmented_min_scan": "cellseg_tpu/ops/pallas/scans.py:136",
     "col_segmented_min_scan": "cellseg_tpu/ops/pallas/scans.py:157",
     "fused_sweeps": "cellseg_tpu/ops/pallas/sweeps.py:93",
+    "stripe_ws_converge": "cellseg_tpu/ops/pallas/ws_local.py:99",
+    "fused_ws_sweeps": "cellseg_tpu/ops/pallas/ws_sweeps.py:137",
 }
 SOURCES = {
     "row_segmented_min_scan": "cellseg_tpu_torch/csrc/scans.cu",
     "col_segmented_min_scan": "cellseg_tpu_torch/csrc/scans.cu",
     "fused_sweeps": "cellseg_tpu_torch/csrc/sweeps.cu",
+    "stripe_ws_converge": "cellseg_tpu_torch/csrc/ws_local.cu",
+    "fused_ws_sweeps": "cellseg_tpu_torch/csrc/ws_sweeps.cu",
 }
+# the kernels each path launches: the CC decode's, and the boundary
+# watershed's (its mask, seeds and area filters are CC work too) on the
+# plain and on the stripe route (one global sweep after each stripe pass)
+CC_KERNELS = ("row_segmented_min_scan", "col_segmented_min_scan",
+              "fused_sweeps")
+BW_KERNELS = CC_KERNELS + ("fused_ws_sweeps",)
+BW_STRIPE_KERNELS = BW_KERNELS + ("stripe_ws_converge",)
+# int32/float32 operations of one watershed relaxation sweep per masked
+# pixel: 8 neighbours x (max, 2 compares + add + 2 selects for the hops, 6
+# compares and 4 logic ops for the order, 3 selects)
+WS_OPS_PER_PX_SWEEP = 8 * 18
+# shapes of the kernel checks, and the side of the timed planes (the
+# main path's padded slide)
+CHECK_SHAPES = [(2176, 2176), (1000, 1537), (4096, 200), (3, 5)]
+TIMED_SIDE = 2176
 
 
 def log(msg: str) -> None:
@@ -54,12 +78,15 @@ def log(msg: str) -> None:
 
 
 def make_slide(H: int = 2048, W: int = 2048, n_cells: int = 2000,
-               seed: int = 0) -> np.ndarray:
+               seed: int = 0, return_labels: bool = False):
     """Synthetic whole-slide surrogate: ~n_cells bright disks on a noisy
-    background (the workload of the JAX package's bench.py)."""
+    background (the workload of the JAX package's bench.py). With
+    return_labels, also the ground-truth instances: each disk's pixels
+    not already taken by an earlier disk."""
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:H, 0:W]
     img_f = rng.normal(30, 8, (H, W))
+    labels = np.zeros((H, W), np.int32) if return_labels else None
     cy = rng.integers(10, H - 10, n_cells)
     cx = rng.integers(10, W - 10, n_cells)
     r = rng.integers(6, 22, n_cells)
@@ -70,7 +97,13 @@ def make_slide(H: int = 2048, W: int = 2048, n_cells: int = 2000,
         inside = d2 <= r[i] ** 2
         img_f[y0:y1, x0:x1] = np.maximum(
             img_f[y0:y1, x0:x1], np.where(inside, 180.0, 0.0))
-    return np.clip(img_f, 0, 255).astype(np.uint8)
+        if labels is not None:
+            blob = labels[y0:y1, x0:x1]
+            blob[inside & (blob == 0)] = i + 1
+    img = np.clip(img_f, 0, 255).astype(np.uint8)
+    if return_labels:
+        return img, labels
+    return img
 
 
 def make_labyrinth(n: int = 1024, seed: int = 0) -> np.ndarray:
@@ -89,6 +122,31 @@ def make_labyrinth(n: int = 1024, seed: int = 0) -> np.ndarray:
     rng = np.random.default_rng(seed)
     mask[half:] = rng.random((n - half, n)) < 0.45
     return mask
+
+
+def ws_world(rng, h: int, w: int, terrain: str, density: float, dev):
+    """The watershed's state over random elevations (continuous, quantized
+    to 0.5, or integer-valued) with a seed on every 200th pixel:
+    [e, mask, cost, hops, label] on `dev`, as ops/watershed.py sets it up."""
+    import torch
+
+    from cellseg_tpu_torch.ops.kernels.ws_sweeps import BIG, INF_HOPS
+
+    img = rng.normal(size=(h, w)).astype(np.float32)
+    if terrain == "quantized":
+        img = np.round(img * 2) / 2
+    elif terrain == "integer":
+        img = rng.integers(0, 4, (h, w)).astype(np.float32)
+    mask = rng.random((h, w)) < density
+    n = h * w // 200 + 1
+    markers = np.zeros((h, w), np.int32)
+    markers[rng.integers(0, h, n), rng.integers(0, w, n)] = np.arange(1, n + 1)
+    markers *= mask
+    e = np.where(mask, img, BIG).astype(np.float32)
+    seeded = markers > 0
+    planes = [e, mask, np.where(seeded, e, BIG).astype(np.float32),
+              np.where(seeded, 0, INF_HOPS).astype(np.int32), markers]
+    return [torch.from_numpy(p).to(dev) for p in planes]
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -142,9 +200,14 @@ def phase_kernels(dev):
     """Every kernel bit-equal to its plain version; times at 2176^2."""
     import torch
 
-    from cellseg_tpu_torch.ops.kernels import scans, sweeps
+    from cellseg_tpu_torch.ops.kernels import (
+        scans,
+        sweeps,
+        ws_local,
+        ws_sweeps,
+    )
 
-    shapes = [(2176, 2176), (1000, 1537), (4096, 200), (3, 5)]
+    shapes = CHECK_SHAPES
     rng = np.random.default_rng(0)
     checked = 0
     max_err = {k: 0 for k in TPU_KERNELS}
@@ -189,62 +252,158 @@ def phase_kernels(dev):
                         f"{(h, w)} density {density}: "
                         f"{int((got != want).sum())} pixels")
                 checked += 1
-    log(f"[2] {checked} kernel cases bit-equal to the plain versions at "
-        f"{shapes}, densities 0.1/0.5/0.9 (tolerance 0: integer labels; "
-        f"max abs err {max_err})")
+    log(f"[2] {checked} scan and sweep cases bit-equal to the plain "
+        f"versions at {shapes}, densities 0.1/0.5/0.9 (tolerance 0: "
+        f"integer labels)")
 
-    # times at the main path's plane size, density 0.5
-    h = w = 2176
+    # B6: all three state planes bit-equal (tolerance 0: the kernel does
+    # the plain version's float32 comparisons in the same order)
+    ws_checked = 0
+    terrains = ("continuous", "quantized", "integer")
+    for h, w in shapes:
+        for terrain in terrains:
+            for density in (0.5, 0.85):
+                args = ws_world(rng, h, w, terrain, density, dev)
+                for k in (1, 8):
+                    got = ws_sweeps.fused_ws_sweeps(*args, k=k)
+                    torch.cuda.synchronize()
+                    want = ws_sweeps.fused_ws_sweeps_plain(*args, k=k)
+                    for g, wt, plane in zip(got, want,
+                                            ("cost", "hops", "label")):
+                        err = float((g.double() - wt.double()).abs().max())
+                        max_err["fused_ws_sweeps"] = max(
+                            max_err["fused_ws_sweeps"], err)
+                        if not torch.equal(g, wt):
+                            raise AssertionError(
+                                f"fused_ws_sweeps k={k} {plane} differs from "
+                                f"its plain version at {(h, w)} {terrain} "
+                                f"density {density}: "
+                                f"{int((g != wt).sum())} pixels")
+                    ws_checked += 1
+    log(f"[2] {ws_checked} fused_ws_sweeps cases (k 1/8, {'/'.join(terrains)}"
+        f" elevations, mask densities 0.5/0.85) bit-equal to the plain "
+        f"version in cost, hops and label at {shapes} (tolerance 0; max abs "
+        f"err {max_err})")
+
+    # B5: the three state planes and the sweeps of every stripe equal
+    # (tolerance 0, as B6), at the JAX package's stripe for the shape or,
+    # where it has none, one stripe of the whole height
+    local_checked = 0
+    for h, w in shapes:
+        stripe = ws_local.ws_stripe(h, w) or h
+        for terrain in terrains:
+            for density in (0.5, 0.85):
+                args = ws_world(rng, h, w, terrain, density, dev)
+                for cap in (256, 5):
+                    ran = [torch.zeros(h // stripe, dtype=torch.int32,
+                                       device=dev) for _ in range(2)]
+                    got = ws_local.stripe_ws_converge(
+                        *args, cap=cap, stripe=stripe, sweeps=ran[0])
+                    torch.cuda.synchronize()
+                    want = ws_local.stripe_ws_converge_plain(
+                        *args, cap=cap, stripe=stripe, sweeps=ran[1])
+                    for g, wt, plane in zip((*got, ran[0]), (*want, ran[1]),
+                                            ("cost", "hops", "label",
+                                             "sweeps")):
+                        err = float((g.double() - wt.double()).abs().max())
+                        max_err["stripe_ws_converge"] = max(
+                            max_err["stripe_ws_converge"], err)
+                        if not torch.equal(g, wt):
+                            raise AssertionError(
+                                f"stripe_ws_converge cap={cap} {plane} "
+                                f"differs from its plain version at "
+                                f"{(h, w)} stripe {stripe} {terrain} density "
+                                f"{density}: {int((g != wt).sum())} pixels")
+                    local_checked += 1
+    log(f"[2] {local_checked} stripe_ws_converge cases (cap 256/5, "
+        f"{'/'.join(terrains)} elevations, mask densities 0.5/0.85) "
+        f"bit-equal to the plain version in cost, hops, label and the "
+        f"sweeps per stripe at {shapes} (tolerance 0; max abs err "
+        f"{max_err['stripe_ws_converge']})")
+
+    # times at the main path's plane size, density 0.5 for the CC kernels
+    h = w = TIMED_SIDE
+    px = h * w
     m = torch.from_numpy(rng.random((h, w)) < 0.5).to(dev)
     any_lab = torch.from_numpy(
         rng.integers(0, h * w, (h, w)).astype(np.int32)).to(dev)
     lab = torch.where(m, any_lab, INF)
-    px = h * w
-    nbytes = px * (4 + 1 + 4)  # labels in, mask in, labels out: each once
+    cc_bytes = px * (4 + 1 + 4)  # labels in, mask in, labels out: each once
+    # the watershed in mid-flood (16 sweeps in), mask density 0.85
+    ws = ws_world(rng, h, w, "continuous", 0.85, dev)
+    ws[2:] = ws_sweeps.fused_ws_sweeps(*ws, k=16)
+    ws_masked = int(ws[1].sum())
+    ws_bytes = px * (4 + 1 + 4 + 4 + 4 + 3 * 4)  # 5 planes in, 3 out
+    # B5 from the watershed's initial state, as the stripe route's first
+    # launch gets it; its operations are those of the sweeps each stripe
+    # of this input runs (the kernel reports them)
+    local = ws_world(rng, h, w, "continuous", 0.85, dev)
+    stripe = ws_local.ws_stripe(h, w)
+    ran = torch.zeros(h // stripe, dtype=torch.int32, device=dev)
+    ws_local.stripe_ws_converge(*local, sweeps=ran)
+    masked_per_stripe = local[1].view(h // stripe, -1).sum(1)
+    local_px_sweeps = int((masked_per_stripe * ran).sum())
+    log(f"[2] stripe_ws_converge input at {h}x{w}: {h // stripe} stripes of "
+        f"{stripe} rows, sweeps per stripe {int(ran.min())}-"
+        f"{int(ran.max())} (mean {float(ran.float().mean()):.1f})")
     rows = {}
-    # (name, configuration, kwargs, int32 ops per pixel); the first of
-    # each name is what the main path launches on the slide and goes into
-    # the JSON line, the others are logged (region scans run in the same
-    # decode; k=16 is the phase-2 configuration of the labyrinth)
-    for name, kw, ops_px in [
-        ("row_segmented_min_scan", {}, 6),
-        ("col_segmented_min_scan", {}, 6),
-        ("fused_sweeps", {"k": 1, "connectivity": 2}, 9),
-        ("row_segmented_min_scan", {"region": True}, 6),
-        ("col_segmented_min_scan", {"region": True}, 6),
-        ("fused_sweeps", {"k": 16, "connectivity": 2}, 16 * 9),
-    ]:
-        if name == "fused_sweeps":
-            kern = sweeps.fused_sweeps
-            inp = lab
-
-            def plain(a, b, kw=kw):
-                return sweeps.fused_sweeps_plain(a, b, kw["k"],
-                                                 kw["connectivity"])
-        else:
-            kern = getattr(scans, name)
-            dim = 1 if name.startswith("row") else 0
-            region = kw.get("region", False)
-            inp = any_lab if region else lab
-
-            def plain(a, b, dim=dim, region=region):
-                return scans.segmented_min_scan_plain(a, b, dim, region)
-        ms = cuda_ms(lambda: kern(inp, m, **kw))
-        plain_ms = cuda_ms(lambda: plain(inp, m), iters=5, warmup=1)
+    # (name, configuration, kernel call, plain call, bytes, int32/float32
+    # operations); the first of each name is what its path launches on the
+    # slide and goes into the JSON line, the others are logged (region
+    # scans run in the same decode; k=16 is the phase-2 configuration of
+    # the labyrinth; the watershed launches k=8 but for a shorter last
+    # launch, k=1 is logged for the cost of one sweep)
+    cases = []
+    for kw in ({}, {"region": True}):
+        region = kw.get("region", False)
+        inp = any_lab if region else lab
+        for name, dim in (("row_segmented_min_scan", 1),
+                          ("col_segmented_min_scan", 0)):
+            cases.append((
+                name, kw,
+                lambda kern=getattr(scans, name), inp=inp, kw=kw:
+                    kern(inp, m, **kw),
+                lambda inp=inp, dim=dim, region=region:
+                    scans.segmented_min_scan_plain(inp, m, dim, region),
+                cc_bytes, 6 * px))
+        if not region:
+            cases.append((
+                "fused_sweeps", {"k": 1, "connectivity": 2},
+                lambda: sweeps.fused_sweeps(lab, m, 1, 2),
+                lambda: sweeps.fused_sweeps_plain(lab, m, 1, 2),
+                cc_bytes, 9 * px))
+    cases.append((
+        "fused_sweeps", {"k": 16, "connectivity": 2},
+        lambda: sweeps.fused_sweeps(lab, m, 16, 2),
+        lambda: sweeps.fused_sweeps_plain(lab, m, 16, 2),
+        cc_bytes, 16 * 9 * px))
+    for k in (8, 1):
+        cases.append((
+            "fused_ws_sweeps", {"k": k},
+            lambda k=k: ws_sweeps.fused_ws_sweeps(*ws, k=k),
+            lambda k=k: ws_sweeps.fused_ws_sweeps_plain(*ws, k=k),
+            ws_bytes, WS_OPS_PER_PX_SWEEP * ws_masked * k))
+    cases.append((
+        "stripe_ws_converge", {"cap": 256, "stripe": stripe},
+        lambda: ws_local.stripe_ws_converge(*local),
+        lambda: ws_local.stripe_ws_converge_plain(*local),
+        ws_bytes, WS_OPS_PER_PX_SWEEP * local_px_sweeps))
+    for name, kw, kern, plain, nbytes, ops in cases:
+        ms = cuda_ms(kern)
+        plain_ms = cuda_ms(plain, iters=3 if name == "stripe_ws_converge"
+                           else 5, warmup=1)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops_px * px / SCALAR_OPS_PER_S * 1e3
+        ops_ms = ops / SCALAR_OPS_PER_S * 1e3
         bound = max(bytes_ms, ops_ms)
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
         log(f"[2] {name} {kw} at {h}x{w}: {ms:.4f} ms, bound {bound:.4f} ms "
-            f"({'bytes' if bytes_ms >= ops_ms else 'operations'}), plain "
-            f"version {plain_ms:.4f} ms")
+            f"({bound_by}), plain version {plain_ms:.4f} ms")
         if name not in rows:
             rows[name] = {
                 "name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": TPU_KERNELS[name], "launches": 0,
                 "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound,
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "library_ms": None,
+                "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
             }
     return rows
 
@@ -296,7 +455,7 @@ def phase_forward(dev):
         f"{float(y_cpu.abs().max()):.3f}")
     if not err <= 1e-3:
         raise AssertionError(f"forward differs from the CPU by {err}")
-    return model_gpu
+    return model_gpu, model_cpu
 
 
 def stage_calls(pred, padded, h, w, dev):
@@ -310,30 +469,26 @@ def stage_calls(pred, padded, h, w, dev):
         state["np01"] = pred.stage_norm(torch.from_numpy(padded).to(dev))
 
     def forward():
-        state["interior"] = pred.stage_forward(state["np01"])
+        state["probs"] = pred.stage_forward(state["np01"])
 
     def decode():
-        labels = pred.stage_decode(state["interior"], h, w)
+        labels = pred.stage_decode(state["probs"], h, w)
         state["labels"] = labels.cpu().numpy()[:h, :w].astype(np.int32)
 
     return state, [("normalize", normalize), ("forward + softmax", forward),
                    ("decode", decode)]
 
 
-def phase_main_path(dev, model, card):
+def run_path(tag, pred, img, dev, card, kernels):
+    """One counted, timed run of a predictor path after a warm-up: launch
+    counts set to 0 just before it and read just after. Fails unless
+    every kernel in `kernels` launched. Returns (state, stage ms, counts,
+    padded slide)."""
     import torch
 
-    from cellseg_tpu_torch.decode.threeclass import (
-        decode_interior_prob,
-        decode_interior_prob_host,
-    )
-    from cellseg_tpu_torch.infer.predictor import Predictor
     from cellseg_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    img = make_slide()
-    pred = Predictor(model, device=dev)
     pred.predict(img)  # warm-up: cuDNN algorithm choice, allocator
-
     padded, h, w = pred.pad(img)
     state, stages = stage_calls(pred, padded, h, w, dev)
     stage_ms = {}
@@ -347,19 +502,39 @@ def phase_main_path(dev, model, card):
             stage_ms[name] = (time.perf_counter() - t0) * 1e3
     counts = launch_counts()
     total = sum(stage_ms.values())
-    log(f"[5] main path, {h}x{w} slide padded to {padded.shape[0]}x"
+    log(f"{tag}, {h}x{w} slide padded to {padded.shape[0]}x"
         f"{padded.shape[1]}, on {card}: "
         + ", ".join(f"{k} {v:.2f} ms" for k, v in stage_ms.items())
         + f", total {total:.2f} ms, {h * w / 1e3 / total:.3f} MP/s")
-    log(f"[5] kernel launches in the main path: {counts}")
-    if not all(counts[k] > 0 for k in TPU_KERNELS):
+    log(f"{tag}, kernel launches: {counts}")
+    if not all(counts[k] > 0 for k in kernels):
         raise AssertionError(f"a kernel of the path did not launch: {counts}")
+    return state, stage_ms, counts, padded
 
-    labels_np = state["labels"]
-    prob = state["interior"].clone()
+
+def masked_probs(probs, h, w):
+    """The forward's probabilities on the host, zero outside the image
+    (as stage_decode masks them)."""
+    prob = probs.clone()
     prob[h:] = 0.0
     prob[:, w:] = 0.0
-    prob_cpu = prob.cpu()
+    return prob.cpu()
+
+
+def phase_main_path(dev, model, card, img):
+    from cellseg_tpu_torch.decode.threeclass import (
+        decode_interior_prob,
+        decode_interior_prob_host,
+    )
+    from cellseg_tpu_torch.infer.predictor import Predictor
+
+    h, w = img.shape[:2]
+    pred = Predictor(model, device=dev)
+    state, stage_ms, counts, padded = run_path(
+        "[5] main path (cc decode)", pred, img, dev, card, CC_KERNELS)
+
+    labels_np = state["labels"]
+    prob_cpu = masked_probs(state["probs"], h, w)
     plain = decode_interior_prob(prob_cpu).numpy()[:h, :w]
     golden = decode_interior_prob_host(prob_cpu.numpy())[:h, :w]
     if not np.array_equal(labels_np, plain):
@@ -371,11 +546,173 @@ def phase_main_path(dev, model, card):
         raise AssertionError("the slide decoded to no instances")
     log(f"[5] {n_cells} instances, identical to the CPU plain decode and "
         f"the scipy golden")
-    phase_profile(pred, padded, h, w, dev, card, stage_ms)
+    phase_profile("[6]", pred, padded, h, w, dev, card, stage_ms)
+    return counts, labels_np
+
+
+def phase_boundary_watershed(dev, model, card, img, gt, cc_labels):
+    """The boundary-watershed path on the slide: card labels bit-identical
+    to the port's CPU plain decode of the same two probability maps, the
+    fused watershed sweeps launched, F1 of both decoders against the
+    ground truth, and agreement with the sequential golden on a crop."""
+    import torch
+
+    from cellseg_tpu_torch.decode.threeclass import boundary_watershed_markers
+    from cellseg_tpu_torch.infer.predictor import Predictor
+    from cellseg_tpu_torch.metrics.f1 import score_pair
+    from cellseg_tpu_torch.ops.watershed import watershed, watershed_host
+
+    h, w = img.shape[:2]
+    pred = Predictor(model, device=dev, decode="boundary_watershed")
+    state, stage_ms, counts, padded = run_path(
+        "[7] boundary-watershed path", pred, img, dev, card, BW_KERNELS)
+
+    labels_np = state["labels"]
+    prob_cpu = masked_probs(state["probs"], h, w)
+    t0 = time.perf_counter()
+    p_int_cpu = prob_cpu[..., 0].contiguous()
+    # decode_boundary_watershed, its markers kept for the stripe route
+    seeds_cpu, mask_cpu = boundary_watershed_markers(
+        p_int_cpu, prob_cpu[..., 1].contiguous())
+    plain = watershed(-p_int_cpu, seeds_cpu, mask_cpu)
+    plain_s = time.perf_counter() - t0
+    if not np.array_equal(labels_np, plain.numpy()[:h, :w]):
+        raise AssertionError("boundary-watershed card labels differ from "
+                             "the CPU plain decode")
+    n_cells = int(labels_np.max())
+    if n_cells == 0:
+        raise AssertionError("the slide decoded to no instances")
+    log(f"[7] {n_cells} instances ({int(cc_labels.max())} with the cc "
+        f"decode), identical to the CPU plain decode of the same "
+        f"probabilities ({padded.shape[0]}x{padded.shape[1]}, "
+        f"{plain_s:.1f} s on {torch.get_num_threads()} CPU threads)")
+    f1 = {name: score_pair(gt, lab)
+          for name, lab in (("cc", cc_labels),
+                            ("boundary_watershed", labels_np))}
+    log(f"[7] instance F1 at IoU 0.5 against the slide's ground truth "
+        f"({f1['cc']['true_num']} cells off the border): "
+        + ", ".join(f"{k} {v['f1']:.4f} (tp {v['tp']}, fp {v['fp']}, "
+                    f"fn {v['fn']})" for k, v in f1.items()))
+
+    # the relaxation against the sequential priority flood on a crop
+    n = 512
+    crop = state["probs"][:n, :n]
+    p_int, p_bnd = crop[..., 0].contiguous(), crop[..., 1].contiguous()
+    with torch.inference_mode():
+        seeds, mask = boundary_watershed_markers(p_int, p_bnd)
+        card_ws = watershed(-p_int, seeds, mask).cpu().numpy()
+    mask_np = mask.cpu().numpy()
+    host_ws = watershed_host(-p_int.cpu().numpy(), seeds.cpu().numpy(),
+                             mask_np)
+    agree = float((card_ws[mask_np] == host_ws[mask_np]).mean())
+    log(f"[7] watershed on a {n}x{n} crop: pixel agreement with the "
+        f"sequential priority-flood golden {agree:.4f} over "
+        f"{int(mask_np.sum())} mask pixels (no threshold)")
+    phase_profile("[8]", pred, padded, h, w, dev, card, stage_ms)
+    return counts, {"labels": labels_np, "seeds": seeds_cpu,
+                    "mask": mask_cpu, "prob": prob_cpu, "f1": f1,
+                    "crop": (seeds, mask, p_int, host_ws)}
+
+
+def phase_stripe_route(dev, model, card, img, gt, bw):
+    """The boundary-watershed path on the stripe route: card labels
+    bit-identical to the same route through the kernels' plain versions
+    (run on the card: the route takes hundreds of sweeps, too many for the
+    CPU at 2176^2) from the CPU plain decode's seeds and mask; B5 and B6
+    launched; how far the labels are from the plain route's, their F1
+    against the ground truth, and agreement with the sequential golden on
+    the crop of [7]."""
+    import torch
+
+    from cellseg_tpu_torch.infer.predictor import Predictor
+    from cellseg_tpu_torch.metrics.f1 import score_pair
+    from cellseg_tpu_torch.ops.watershed import watershed, watershed_plain
+
+    h, w = img.shape[:2]
+    pred = Predictor(model, device=dev, decode="boundary_watershed",
+                     ws_route="stripe")
+    state, stage_ms, counts, padded = run_path(
+        "[10] boundary-watershed path, stripe route", pred, img, dev, card,
+        BW_STRIPE_KERNELS)
+    labels_np = state["labels"]
+    p_int = bw["prob"][..., 0].contiguous().to(dev)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ref = watershed_plain(-p_int, bw["seeds"].to(dev), bw["mask"].to(dev),
+                              route="stripe").cpu().numpy()[:h, :w]
+    ref_s = time.perf_counter() - t0
+    if not np.array_equal(labels_np, ref):
+        raise AssertionError("stripe-route card labels differ from the "
+                             "plain versions' stripe route")
+    mask_np = bw["mask"].numpy()[:h, :w]
+    differ = int((labels_np != bw["labels"])[mask_np].sum())
+    f1 = score_pair(gt, labels_np)
+    log(f"[10] {int(labels_np.max())} instances, identical to the stripe "
+        f"route through the plain versions on the card from the CPU "
+        f"decode's seeds and mask ({ref_s:.1f} s); {differ} of "
+        f"{int(mask_np.sum())} mask pixels labeled otherwise than on the "
+        f"plain route; instance F1 at IoU 0.5 against the ground truth "
+        f"{f1['f1']:.4f} (tp {f1['tp']}, fp {f1['fp']}, fn {f1['fn']}; plain "
+        f"route {bw['f1']['boundary_watershed']['f1']:.4f})")
+    seeds, mask, crop_int, host_ws = bw["crop"]
+    with torch.inference_mode():
+        card_ws = watershed(-crop_int, seeds, mask,
+                            route="stripe").cpu().numpy()
+    crop_mask = mask.cpu().numpy()
+    agree = float((card_ws[crop_mask] == host_ws[crop_mask]).mean())
+    log(f"[10] stripe-route watershed on the {crop_mask.shape[0]}x"
+        f"{crop_mask.shape[1]} crop: pixel agreement with the sequential "
+        f"priority-flood golden {agree:.4f} (no threshold)")
+    phase_profile("[11]", pred, padded, h, w, dev, card, stage_ms)
     return counts
 
 
-def phase_profile(pred, padded, h, w, dev, card, stage_ms):
+def phase_tta(dev, model, model_cpu, card, img):
+    """One dihedral-TTA prediction of a 512x512 crop, checked as the main
+    path is: its probabilities against the CPU forward, its labels
+    against the CPU plain decode and the scipy golden."""
+    import torch
+
+    from cellseg_tpu_torch.decode.threeclass import (
+        decode_interior_prob,
+        decode_interior_prob_host,
+    )
+    from cellseg_tpu_torch.infer.predictor import Predictor
+    from cellseg_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    crop = img[:512, :512]
+    pred = Predictor(model, device=dev, tta=True)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    labels, probs, h, w = pred.predict_device(crop)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    if not all(counts[k] > 0 for k in CC_KERNELS):
+        raise AssertionError(f"a kernel of the path did not launch: {counts}")
+    labels_np = labels.cpu().numpy()[:h, :w].astype(np.int32)
+
+    cpu = Predictor(model_cpu, device="cpu", tta=True)
+    with torch.inference_mode():
+        p_cpu = cpu.stage_forward(cpu.stage_norm(
+            torch.from_numpy(cpu.pad(crop)[0])))
+    err = float((probs.cpu() - p_cpu).abs().max())
+    if not err <= 1e-3:
+        raise AssertionError(f"TTA probabilities differ from the CPU by {err}")
+    prob_cpu = masked_probs(probs, h, w)
+    plain = decode_interior_prob(prob_cpu).numpy()[:h, :w]
+    golden = decode_interior_prob_host(prob_cpu.numpy())[:h, :w]
+    if not (np.array_equal(labels_np, plain)
+            and np.array_equal(labels_np, golden)):
+        raise AssertionError("TTA card labels differ from the CPU plain "
+                             "decode or the scipy golden")
+    log(f"[9] TTA (8 dihedral views, cc decode) on a {h}x{w} crop, on "
+        f"{card}: {ms:.2f} ms first call; probabilities within {err:.3e} of "
+        f"the CPU (limit 1e-3); {int(labels_np.max())} instances identical "
+        f"to the CPU plain decode and the scipy golden; launches {counts}")
+
+
+def phase_profile(tag, pred, padded, h, w, dev, card, stage_ms):
     """Device busy time per stage (torch.profiler) and the stage's
     heaviest kernels. The idle share is taken against the stage's wall
     time in the counted run (`stage_ms`): walls under the profiler are
@@ -399,10 +736,11 @@ def phase_profile(pred, padded, h, w, dev, card, stage_ms):
                        if e.device_type == DeviceType.CUDA]
             busy = sum(e.self_device_time_total for e in kernels) / 1e3
             if busy == 0:
-                log(f"[6] {name}: device time not measured by the profiler")
+                log(f"{tag} {name}: device time not measured by the "
+                    f"profiler")
                 continue
             top = sorted(kernels, key=lambda e: -e.self_device_time_total)
-            log(f"[6] {name} on {card}: device busy {busy:.2f} ms of the "
+            log(f"{tag} {name} on {card}: device busy {busy:.2f} ms of the "
                 f"counted run's {wall:.2f} ms wall, idle share "
                 f"{max(0.0, 1 - busy / wall):.3f}; heaviest: "
                 + "; ".join(f"{e.key[:48]} x{e.count} "
@@ -428,10 +766,18 @@ def main() -> int:
     card = phase_setup()
     rows = phase_kernels(dev)
     phase_labyrinth(dev)
-    model = phase_forward(dev)
-    counts = phase_main_path(dev, model, card)
+    model, model_cpu = phase_forward(dev)
+    img, gt = make_slide(return_labels=True)
+    counts, cc_labels = phase_main_path(dev, model, card, img)
+    bw_counts, bw = phase_boundary_watershed(dev, model, card, img, gt,
+                                             cc_labels)
+    phase_tta(dev, model, model_cpu, card, img)
+    stripe_counts = phase_stripe_route(dev, model, card, img, gt, bw)
     for name, row in rows.items():
-        row["launches"] = counts[name]
+        # each kernel's launches in the run of the path it was ported for
+        row["launches"] = {"fused_ws_sweeps": bw_counts,
+                           "stripe_ws_converge": stripe_counts}.get(
+                               name, counts)[name]
     print(json.dumps({"kernels": list(rows.values())}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -81,8 +81,49 @@ def test_cli_model_name_override(inputs, tmp_path):
     assert (out / "cell_00000_label.tiff").exists()
 
 
-def test_cli_unported_decode_raises(inputs, tmp_path):
-    with pytest.raises(NotImplementedError, match="A8"):
+@pytest.mark.parametrize("flags", [["--decode", "boundary_watershed"],
+                                   ["--tta"]], ids=["boundary_watershed",
+                                                    "tta"])
+def test_cli_decode_options_match_predictor_and_jax_cli(inputs, tmp_path,
+                                                         flags):
+    ours, theirs = tmp_path / "ours", tmp_path / "theirs"
+    predict_main(["-i", str(inputs), "-o", str(ours), "--model_path", CKPT,
+                  "--device", "cpu", *flags])
+    jax_predict_main(["-i", str(inputs), "-o", str(theirs),
+                      "--model_path", CKPT, *flags])
+    model, _ = load_model_for_inference(CKPT, device="cpu")
+    pred = Predictor(model, device="cpu",
+                     decode="boundary_watershed" if "--decode" in flags
+                     else "cc", tta="--tta" in flags)
+    for stem in ("cell_00000", "cell_00001"):
+        a = imread(str(ours / f"{stem}_label.tiff")).astype(np.int32)
+        b = imread(str(theirs / f"{stem}_label.tiff")).astype(np.int32)
+        src = [f for f in os.listdir(inputs) if f.startswith(stem)][0]
+        np.testing.assert_array_equal(a, pred.predict(imread(
+            str(inputs / src))))
+        assert score_pair(b, a)["f1"] >= 0.999
+        assert a.max() > 3
+
+
+def test_cli_stripe_route_matches_predictor(inputs, tmp_path):
+    out = tmp_path / "out"
+    predict_main(["-i", str(inputs), "-o", str(out), "--model_path", CKPT,
+                  "--device", "cpu", "--decode", "boundary_watershed",
+                  "--ws_route", "stripe"])
+    model, _ = load_model_for_inference(CKPT, device="cpu")
+    pred = Predictor(model, device="cpu", decode="boundary_watershed",
+                     ws_route="stripe")
+    for stem in ("cell_00000", "cell_00001"):
+        a = imread(str(out / f"{stem}_label.tiff")).astype(np.int32)
+        src = [f for f in os.listdir(inputs) if f.startswith(stem)][0]
+        np.testing.assert_array_equal(a, pred.predict(imread(
+            str(inputs / src))))
+        assert a.max() > 3
+
+
+def test_cli_unported_model_raises(inputs, tmp_path):
+    with pytest.raises(NotImplementedError, match="A9"):
         predict_main(["-i", str(inputs), "-o", str(tmp_path / "o"),
-                      "--model_path", CKPT, "--device", "cpu",
-                      "--decode", "boundary_watershed"])
+                      "--model_path", os.path.dirname(CKPT),
+                      "--checkpoint", os.path.basename(CKPT),
+                      "--model_name", "dunet", "--device", "cpu"])

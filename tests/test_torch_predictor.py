@@ -6,8 +6,14 @@ whole 3-class slice against the JAX package, on the CPU.
   compared (uniform and clamped grids, constant and gaussian blends,
   duplicate pad tiles);
 - the msgpack reader: the same arrays as flax.serialization;
-- the slice: the trained checkpoint on synthetic images; labels identical
-  except where |p - 0.5| < 1e-4, instance F1 >= 0.999.
+- the slice: the trained checkpoint on synthetic images; probabilities
+  within 1e-4; CC labels identical except where |p - 0.5| < 1e-4, instance
+  F1 >= 0.999; boundary-watershed labels (with and without the dihedral
+  TTA) at instance F1 >= 0.999 and pixel agreement >= 0.999, since a 1e-5
+  move of P(interior) can move a ridge pixel (the decode itself is held
+  bit for bit in test_torch_decode.py); the boundary watershed's stripe
+  route (the JAX package's TPU route) against the decode of the same
+  probabilities.
 """
 
 import os
@@ -158,9 +164,10 @@ def models():
     return jm, jp, tm
 
 
-def _jax_run(jm, jp, img):
-    """The JAX predictor's padded labels and interior probability."""
-    pred = JaxPredictor(lambda p, t: jm.apply(p, t), jp)
+def _jax_run(jm, jp, img, **opts):
+    """The JAX predictor's labels and forward output (the interior
+    probability, or interior and boundary for the boundary watershed)."""
+    pred = JaxPredictor(lambda p, t: jm.apply(p, t), jp, **opts)
     from cellseg_tpu.io.images import to_hwc_raw
 
     raw = to_hwc_raw(img)
@@ -176,16 +183,18 @@ def _jax_run(jm, jp, img):
             np.asarray(interior)[:h, :w])
 
 
-def _assert_slice_parity(jm, jp, tm, img):
-    want, p_jax = _jax_run(jm, jp, img)
-    pred = Predictor(tm, device="cpu")
-    labels, interior, h, w = pred.predict_device(img)
+def _assert_slice_parity(jm, jp, tm, img, **opts):
+    want, p_jax = _jax_run(jm, jp, img, **opts)
+    pred = Predictor(tm, device="cpu", **opts)
+    labels, probs, h, w = pred.predict_device(img)
     got = labels.numpy()[:h, :w].astype(np.int32)
-    p_port = interior.numpy()[:h, :w]
+    p_port = probs.numpy()[:h, :w]
     assert got.shape == want.shape == img.shape[:2]
+    assert p_port.shape == p_jax.shape
     assert np.abs(p_port - p_jax).max() < 1e-4
-    ambiguous = np.abs(p_jax - 0.5) < 1e-4
-    if ambiguous.any():
+    if opts.get("decode") == "boundary_watershed":
+        assert float((got == want).mean()) >= 0.999
+    elif (ambiguous := np.abs(p_jax - 0.5) < 1e-4).any():
         # a flipped ambiguous pixel may renumber later instances, so only
         # the foreground is compared pixel by pixel
         assert not (((got > 0) != (want > 0)) & ~ambiguous).any()
@@ -222,11 +231,49 @@ def test_predict_many_equals_predict(models):
         np.testing.assert_array_equal(labels, pred.predict(img))
 
 
-@pytest.mark.parametrize("kw", [{"decode": "boundary_watershed"},
-                                {"tta": True}])
-def test_unported_predictor_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="A8"):
-        Predictor(lambda t: t, device="cpu", **kw)
+@pytest.mark.parametrize("opts", [{"decode": "boundary_watershed"},
+                                  {"tta": True},
+                                  {"decode": "boundary_watershed",
+                                   "tta": True}],
+                         ids=["boundary_watershed", "tta",
+                              "boundary_watershed_tta"])
+def test_predictor_options_match_jax(models, opts):
+    """A 200x240 crop: one 256x256 tile per view, eight views with tta."""
+    jm, jp, tm = models
+    img, _ = make_image(np.random.default_rng(6), 256, n_cells=40)
+    got = _assert_slice_parity(jm, jp, tm, img[:200, :240], **opts)
+    assert got.max() > 5
+
+
+def test_stripe_route_predictor_is_its_decode(models):
+    """ws_route="stripe": the same probabilities as the plain route, and
+    labels that are the stripe-route decode of them."""
+    from cellseg_tpu_torch.decode.threeclass import decode_boundary_watershed
+
+    _, _, tm = models
+    img, _ = make_image(np.random.default_rng(6), 256, n_cells=40)
+    img = img[:200, :240]
+    pred = Predictor(tm, device="cpu", decode="boundary_watershed",
+                     ws_route="stripe")
+    labels, probs, h, w = pred.predict_device(img)
+    plain = Predictor(tm, device="cpu", decode="boundary_watershed")
+    _, probs_plain, _, _ = plain.predict_device(img)
+    assert torch.equal(probs, probs_plain)
+    p = probs.clone()
+    p[h:] = 0.0
+    p[:, w:] = 0.0
+    want = decode_boundary_watershed(p[..., 0].contiguous(),
+                                     p[..., 1].contiguous(), route="stripe")
+    assert torch.equal(labels, want.to(torch.uint16))
+    assert int(want.max()) > 5
+
+
+def test_unknown_decode_raises():
+    with pytest.raises(ValueError, match="decode"):
+        Predictor(lambda t: t, device="cpu", decode="flow")
+    with pytest.raises(ValueError, match="route"):
+        Predictor(lambda t: t, device="cpu", decode="boundary_watershed",
+                  ws_route="local")
 
 
 def test_cuda_request_without_a_card_raises():
