@@ -6,7 +6,8 @@ sliding-window UNet and the decode (CC, or --decode boundary_watershed
 with --ws_route plain or stripe; --tta averages the 8 dihedral views) on
 the card, and writes `{stem}_label.tiff` instance maps. Flags follow
 cellseg_tpu.cli.predict, plus --device (default cuda; cpu runs the plain
-PyTorch path) and --ws_route.
+PyTorch path), --ws_route and --cc_route (global or stripe: the CC
+propagation's route, same labels).
 """
 
 from __future__ import annotations
@@ -64,6 +65,13 @@ def main(argv=None):
                         help="boundary watershed's route: plain = the JAX "
                              "package's labels off the TPU; stripe = its "
                              "block-local route on the TPU")
+    parser.add_argument("--cc_route", default="global",
+                        choices=["global", "stripe"],
+                        help="CC propagation's route: global = scans and "
+                             "sweeps over the whole plane; stripe = "
+                             "block-local convergence per row stripe (the "
+                             "JAX package's CELLSEG_LOCALCC route); the "
+                             "labels are the same")
     parser.add_argument("--overlap", default=0.25, type=float,
                         help="sliding-window tile overlap fraction")
     parser.add_argument("--tta", action="store_true",
@@ -75,7 +83,8 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     if args.model_name:
-        model = build_model(args.model_name, num_class=args.num_class)
+        model = build_model(args.model_name, num_class=args.num_class,
+                            input_size=args.input_size)
         payload = load_checkpoint(join(args.model_path, args.checkpoint))
         model.load_state_dict(convert_params(payload["params"]))
     else:
@@ -87,7 +96,7 @@ def main(argv=None):
                   else int(args.sw_batch_size)),
         num_class=args.num_class, bucket=args.bucket, mode=args.blend,
         overlap=args.overlap, decode=args.decode, tta=args.tta,
-        ws_route=args.ws_route, device=args.device)
+        ws_route=args.ws_route, cc_route=args.cc_route, device=args.device)
 
     os.makedirs(args.output_path, exist_ok=True)
     for img_name in list_images(args.input_path):

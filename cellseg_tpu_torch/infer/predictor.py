@@ -20,6 +20,7 @@ from ..decode.threeclass import (
 )
 from ..device import resolve_device, set_f32_precision
 from ..io.images import to_hwc_raw
+from ..ops.cc import check_route
 from ..ops.watershed import ROUTES
 from ..pipeline.normalize import normalize_image_torch
 from .sliding_window import (
@@ -59,6 +60,9 @@ class Predictor:
     ws_route: the boundary watershed's route to its fixed point, "plain"
     (the JAX package's off the TPU, which its tests check) or "stripe"
     (its route on the TPU); ops/watershed.py.
+    cc_route: the route of the decode's CC propagation, "global" (default)
+    or "stripe" (block-local, csrc/local_cc.cu, on the shapes it admits;
+    ops/cc.py); the labels are the same.
     tta: average the softmax over the 8 flip/rot90 views before decoding
     (8 forwards)."""
 
@@ -67,6 +71,7 @@ class Predictor:
                  mode: str = "constant", bucket: int = 256,
                  normalize: bool = True, decode: str = "cc",
                  tta: bool = False, ws_route: str = "plain",
+                 cc_route: str = "global",
                  device: str | torch.device = "cuda"):
         if decode not in ("cc", "boundary_watershed"):
             raise ValueError(f"unknown decode {decode!r}: cc or "
@@ -74,6 +79,7 @@ class Predictor:
         if ws_route not in ROUTES:
             raise ValueError(f"unknown watershed route {ws_route!r}: "
                              f"{' or '.join(ROUTES)}")
+        check_route(cc_route)
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             set_f32_precision()
@@ -90,6 +96,7 @@ class Predictor:
         self.decode = decode
         self.tta = tta
         self.ws_route = ws_route
+        self.cc_route = cc_route
 
     def stage_norm(self, padded: torch.Tensor) -> torch.Tensor:
         """Raw (H, W, C) pixels -> model-ready float32 (H, W, 3) in [0, 1]."""
@@ -156,9 +163,10 @@ class Predictor:
         if self.decode == "boundary_watershed":
             labels = decode_boundary_watershed(fwd_out[..., 0].contiguous(),
                                                fwd_out[..., 1].contiguous(),
-                                               route=self.ws_route)
+                                               route=self.ws_route,
+                                               cc_route=self.cc_route)
         else:
-            labels = decode_interior_prob(fwd_out)
+            labels = decode_interior_prob(fwd_out, cc_route=self.cc_route)
         # uint16 halves the transfer to the host; cell counts stay < 65k
         return labels.to(torch.uint16)
 

@@ -23,12 +23,14 @@ _NOT_PORTED = {
 }
 
 
-def build_model(name: str, num_class: int = 3, in_channels: int = 3,
-                **overrides):
+def build_model(name: str, num_class: int = 3, input_size: int = 256, *,
+                in_channels: int = 3, **overrides):
     """Instantiate a model by reference-compatible name.
 
-    A `channels` override without `strides` derives one downsample per
-    level, as the JAX factory does."""
+    The leading parameters are the JAX factory's: input_size is the image
+    size of the transformer models (not ported yet, ROADMAP A11); the UNet
+    takes any size. A `channels` override without `strides` derives one
+    downsample per level, as the JAX factory does."""
     name = name.lower()
     if name in _NOT_PORTED:
         raise NotImplementedError(

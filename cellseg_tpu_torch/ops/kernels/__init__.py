@@ -4,16 +4,17 @@
 |--------------|------------------------------------------------|---------------------------------|
 | scans.py     | row_segmented_min_scan, col_segmented_min_scan | ops/pallas/scans.py (B1, B2)    |
 | sweeps.py    | fused_sweeps                                   | ops/pallas/sweeps.py (B3)       |
+| local_cc.py  | stripe_converge                                | ops/pallas/local_cc.py (B4)     |
 | ws_local.py  | stripe_ws_converge                             | ops/pallas/ws_local.py (B5)     |
 | ws_sweeps.py | fused_ws_sweeps                                | ops/pallas/ws_sweeps.py (B6)    |
 """
 
 from __future__ import annotations
 
-from . import scans, sweeps, ws_local, ws_sweeps
+from . import local_cc, scans, sweeps, ws_local, ws_sweeps
 
-_COUNTERS = (scans.LAUNCHES, sweeps.LAUNCHES, ws_local.LAUNCHES,
-             ws_sweeps.LAUNCHES)
+_COUNTERS = (scans.LAUNCHES, sweeps.LAUNCHES, local_cc.LAUNCHES,
+             ws_local.LAUNCHES, ws_sweeps.LAUNCHES)
 
 
 def launch_counts() -> dict[str, int]:

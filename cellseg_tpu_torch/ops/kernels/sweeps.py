@@ -40,13 +40,15 @@ _DIAG = ((-1, -1), (-1, 1), (1, -1), (1, 1))
 
 def sweep_min_plain(lab: torch.Tensor, mask: torch.Tensor,
                     connectivity: int) -> torch.Tensor:
-    """One masked neighbour-min sweep in plain PyTorch."""
-    h, w = lab.shape
-    padded = F.pad(lab.unsqueeze(0), (1, 1, 1, 1), value=INF)[0]
+    """One masked neighbour-min sweep in plain PyTorch over the last two
+    dims (any leading dims are a batch of images)."""
+    h, w = lab.shape[-2:]
+    padded = F.pad(lab, (1, 1, 1, 1), value=INF)
     shifts = _CROSS + _DIAG if connectivity == 2 else _CROSS
     out = lab
     for dy, dx in shifts:
-        out = torch.minimum(out, padded[1 + dy:1 + dy + h, 1 + dx:1 + dx + w])
+        out = torch.minimum(
+            out, padded[..., 1 + dy:1 + dy + h, 1 + dx:1 + dx + w])
     return torch.where(mask != 0, out, INF)
 
 

@@ -10,13 +10,14 @@ softmax -> decode) on a 2048x2048 synthetic slide, first with the CC
 decode (the main path), then with the boundary-watershed decode on the
 watershed's plain route, a dihedral-TTA prediction of a 512x512 crop, and
 the boundary-watershed decode once more on the stripe route (the JAX
-package's route on the TPU). Every phase raises on failure. Output, in
-order: the card and toolchain, per-kernel checks and times, the labyrinth
-labeling, the forward parity, each path's stage times, kernel launch
-counts and a profile of each stage, the instance F1 of the decoders
-against the slide's ground truth, the TTA check, then one JSON line of
-per-kernel numbers, the card's name and power limit, and the `ok` line
-last.
+package's route on the TPU), and the CC decode once more on the CC stripe
+route (block-local convergence, B4). Every phase raises on failure.
+Output, in order: the card and toolchain, per-kernel checks and times,
+the labyrinth labeling on both CC routes, the forward parity, each path's
+stage times, kernel launch counts and a profile of each stage, the
+instance F1 of the decoders against the slide's ground truth, the TTA
+check, then one JSON line of per-kernel numbers, the card's name and
+power limit, and the `ok` line last.
 
 Needs one CUDA device and the repository beside this file; exits nonzero
 without either. Imports nothing of JAX or of the JAX package.
@@ -46,6 +47,7 @@ TPU_KERNELS = {
     "row_segmented_min_scan": "cellseg_tpu/ops/pallas/scans.py:136",
     "col_segmented_min_scan": "cellseg_tpu/ops/pallas/scans.py:157",
     "fused_sweeps": "cellseg_tpu/ops/pallas/sweeps.py:93",
+    "stripe_converge": "cellseg_tpu/ops/pallas/local_cc.py:146",
     "stripe_ws_converge": "cellseg_tpu/ops/pallas/ws_local.py:99",
     "fused_ws_sweeps": "cellseg_tpu/ops/pallas/ws_sweeps.py:137",
 }
@@ -53,6 +55,7 @@ SOURCES = {
     "row_segmented_min_scan": "cellseg_tpu_torch/csrc/scans.cu",
     "col_segmented_min_scan": "cellseg_tpu_torch/csrc/scans.cu",
     "fused_sweeps": "cellseg_tpu_torch/csrc/sweeps.cu",
+    "stripe_converge": "cellseg_tpu_torch/csrc/local_cc.cu",
     "stripe_ws_converge": "cellseg_tpu_torch/csrc/ws_local.cu",
     "fused_ws_sweeps": "cellseg_tpu_torch/csrc/ws_sweeps.cu",
 }
@@ -63,6 +66,16 @@ CC_KERNELS = ("row_segmented_min_scan", "col_segmented_min_scan",
               "fused_sweeps")
 BW_KERNELS = CC_KERNELS + ("fused_ws_sweeps",)
 BW_STRIPE_KERNELS = BW_KERNELS + ("stripe_ws_converge",)
+# the CC decode on the CC stripe route: B4, the full-height column scan
+# and the global 3x3 sweep of the 8-conn labeling (no row scan)
+CC_STRIPE_KERNELS = ("stripe_converge", "col_segmented_min_scan",
+                     "fused_sweeps")
+# int32 operations of one B4 round per pixel: each segmented scan folds
+# forward and backward (a min and a select each) and masks (1), the 8-conn
+# sweep takes 8 mins and a select, a region scan compares for its openness
+# in both directions (2) instead of masking; 1 compare for the change vote
+LOCAL_CC_OPS_PER_PX_ROUND = {(1, False): 2 * 5 + 1, (2, False): 2 * 5 + 9 + 1,
+                             (1, True): 2 * 6 + 1}
 # int32/float32 operations of one watershed relaxation sweep per masked
 # pixel: 8 neighbours x (max, 2 compares + add + 2 selects for the hops, 6
 # compares and 4 logic ops for the order, 3 selects)
@@ -71,6 +84,7 @@ WS_OPS_PER_PX_SWEEP = 8 * 18
 # main path's padded slide)
 CHECK_SHAPES = [(2176, 2176), (1000, 1537), (4096, 200), (3, 5)]
 TIMED_SIDE = 2176
+LABYRINTH_SIDE = 1024
 
 
 def log(msg: str) -> None:
@@ -200,7 +214,9 @@ def phase_kernels(dev):
     """Every kernel bit-equal to its plain version; times at 2176^2."""
     import torch
 
+    from cellseg_tpu_torch.ops.cc import stripe_route_supported
     from cellseg_tpu_torch.ops.kernels import (
+        local_cc,
         scans,
         sweeps,
         ws_local,
@@ -321,6 +337,49 @@ def phase_kernels(dev):
         f"sweeps per stripe at {shapes} (tolerance 0; max abs err "
         f"{max_err['stripe_ws_converge']})")
 
+    # B4: the labels and the rounds of every stripe equal (tolerance 0),
+    # at the shapes where the CC stripe route runs (the labyrinth's too),
+    # plain mode with INF off the mask and region mode on any labels, with
+    # the route's cap and a binding one
+    lcc_checked = 0
+    lcc_shapes = [s for s in dict.fromkeys(
+        shapes + [(LABYRINTH_SIDE, LABYRINTH_SIDE)])
+        if stripe_route_supported(*s)]
+    for h, w in lcc_shapes:
+        stripe = local_cc.cc_stripe(h, w)
+        for density in (0.1, 0.5, 0.9):
+            m = torch.from_numpy(rng.random((h, w)) < density).to(dev)
+            vals = torch.from_numpy(
+                rng.integers(0, h * w, (h, w)).astype(np.int32)).to(dev)
+            lab = torch.where(m, vals, INF)
+            for conn, region, inp in ((1, False, lab), (2, False, lab),
+                                      (1, True, vals)):
+                for cap in (16, 2):
+                    ran = [torch.zeros(h // stripe, dtype=torch.int32,
+                                       device=dev) for _ in range(2)]
+                    got = local_cc.stripe_converge(inp, m, conn, region, cap,
+                                                   rounds=ran[0])
+                    torch.cuda.synchronize()
+                    want = local_cc.stripe_converge_plain(
+                        inp, m, conn, region, cap, stripe, ran[1])
+                    for g, wt, plane in ((got, want, "labels"),
+                                         (ran[0], ran[1], "rounds")):
+                        err = int((g.long() - wt.long()).abs().max())
+                        max_err["stripe_converge"] = max(
+                            max_err["stripe_converge"], err)
+                        if not torch.equal(g, wt):
+                            raise AssertionError(
+                                f"stripe_converge connectivity {conn} region "
+                                f"{region} cap {cap} {plane} differ from the "
+                                f"plain version at {(h, w)} stripe {stripe} "
+                                f"density {density}: "
+                                f"{int((g != wt).sum())} entries")
+                    lcc_checked += 1
+    log(f"[2] {lcc_checked} stripe_converge cases (connectivity 1/2, region "
+        f"on/off, cap 16/2, densities 0.1/0.5/0.9) bit-equal to the plain "
+        f"version in labels and rounds per stripe at {lcc_shapes} "
+        f"(tolerance 0; max abs err {max_err['stripe_converge']})")
+
     # times at the main path's plane size, density 0.5 for the CC kernels
     h = w = TIMED_SIDE
     px = h * w
@@ -346,6 +405,20 @@ def phase_kernels(dev):
     log(f"[2] stripe_ws_converge input at {h}x{w}: {h // stripe} stripes of "
         f"{stripe} rows, sweeps per stripe {int(ran.min())}-"
         f"{int(ran.max())} (mean {float(ran.float().mean()):.1f})")
+    # B4 at the port's stripe for the plane; its operations are those of
+    # the rounds each stripe of this input runs (the kernel reports them)
+    lcc_stripe = local_cc.cc_stripe(h, w)
+    lcc_ops = {}
+    for conn, region in LOCAL_CC_OPS_PER_PX_ROUND:
+        ran = torch.zeros(h // lcc_stripe, dtype=torch.int32, device=dev)
+        local_cc.stripe_converge(any_lab if region else lab, m, conn, region,
+                                 rounds=ran)
+        lcc_ops[conn, region] = (LOCAL_CC_OPS_PER_PX_ROUND[conn, region]
+                                 * int(ran.sum()) * lcc_stripe * w)
+        log(f"[2] stripe_converge input at {h}x{w}, connectivity {conn} "
+            f"region {region}: {h // lcc_stripe} stripes of {lcc_stripe} "
+            f"rows, rounds per stripe {int(ran.min())}-{int(ran.max())} "
+            f"(mean {float(ran.float().mean()):.2f}, cap 16)")
     rows = {}
     # (name, configuration, kernel call, plain call, bytes, int32/float32
     # operations); the first of each name is what its path launches on the
@@ -383,6 +456,18 @@ def phase_kernels(dev):
             lambda k=k: ws_sweeps.fused_ws_sweeps(*ws, k=k),
             lambda k=k: ws_sweeps.fused_ws_sweeps_plain(*ws, k=k),
             ws_bytes, WS_OPS_PER_PX_SWEEP * ws_masked * k))
+    # the 8-conn labeling first: the decode's last and largest labeling
+    for conn, region in ((2, False), (1, False), (1, True)):
+        inp = any_lab if region else lab
+        cases.append((
+            "stripe_converge",
+            {"connectivity": conn, "region": region, "cap": 16,
+             "stripe": lcc_stripe},
+            lambda inp=inp, c=conn, r=region:
+                local_cc.stripe_converge(inp, m, c, r),
+            lambda inp=inp, c=conn, r=region:
+                local_cc.stripe_converge_plain(inp, m, c, r),
+            cc_bytes, lcc_ops[conn, region]))
     cases.append((
         "stripe_ws_converge", {"cap": 256, "stripe": stripe},
         lambda: ws_local.stripe_ws_converge(*local),
@@ -409,30 +494,40 @@ def phase_kernels(dev):
 
 
 def phase_labyrinth(dev):
+    """The labyrinth on both CC routes: the global route reaches phase 2
+    (B3 with k = 16), the stripe route runs B4. Labels equal to scipy;
+    the time is of the second of two calls."""
     import torch
     from scipy import ndimage
 
     from cellseg_tpu_torch.ops.cc import label_components
     from cellseg_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    mask_np = make_labyrinth()
+    mask_np = make_labyrinth(LABYRINTH_SIDE)
     mask = torch.from_numpy(mask_np).to(dev)
-    for conn in (1, 2):
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        got = label_components(mask, connectivity=conn)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts = launch_counts()
-        want, n = ndimage.label(
-            mask_np, structure=ndimage.generate_binary_structure(2, conn))
-        if not np.array_equal(got.cpu().numpy(), want):
-            raise AssertionError(f"labyrinth labels differ from scipy at "
-                                 f"connectivity {conn}")
-        if counts["fused_sweeps"] == 0:
-            raise AssertionError("labyrinth did not reach the fused sweeps")
-        log(f"[3] labyrinth 1024x1024 conn {conn}: {n} components equal to "
-            f"scipy, {dt * 1e3:.1f} ms, launches {counts}")
+    needs = {"global": "fused_sweeps", "stripe": "stripe_converge"}
+    for route, kernel in needs.items():
+        for conn in (1, 2):
+            label_components(mask, connectivity=conn, route=route)
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = label_components(mask, connectivity=conn, route=route)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = launch_counts()
+            want, n = ndimage.label(
+                mask_np, structure=ndimage.generate_binary_structure(2, conn))
+            if not np.array_equal(got.cpu().numpy(), want):
+                raise AssertionError(f"labyrinth labels differ from scipy at "
+                                     f"connectivity {conn}, route {route}")
+            if counts[kernel] == 0:
+                raise AssertionError(f"labyrinth on the {route} route did "
+                                     f"not launch {kernel}")
+            log(f"[3] labyrinth {LABYRINTH_SIDE}x{LABYRINTH_SIDE} conn {conn}"
+                f", {route} route: {n} components equal to scipy, "
+                f"{dt * 1e3:.1f} ms, launches "
+                f"{ {k: v for k, v in counts.items() if v} }")
 
 
 def phase_forward(dev):
@@ -712,6 +807,33 @@ def phase_tta(dev, model, model_cpu, card, img):
         f"to the CPU plain decode and the scipy golden; launches {counts}")
 
 
+def phase_cc_stripe_route(dev, model, card, img, cc_labels):
+    """The main path with the CC decode on the CC stripe route: labels
+    bit-identical to the global route's [5] and to the scipy golden of
+    this run's probabilities; B4 and the column scan launched."""
+    from cellseg_tpu_torch.decode.threeclass import decode_interior_prob_host
+    from cellseg_tpu_torch.infer.predictor import Predictor
+
+    h, w = img.shape[:2]
+    pred = Predictor(model, device=dev, cc_route="stripe")
+    state, stage_ms, counts, padded = run_path(
+        "[12] main path (cc decode), CC stripe route", pred, img, dev, card,
+        CC_STRIPE_KERNELS)
+    labels_np = state["labels"]
+    golden = decode_interior_prob_host(
+        masked_probs(state["probs"], h, w).numpy())[:h, :w]
+    if not np.array_equal(labels_np, cc_labels):
+        raise AssertionError("CC stripe-route labels differ from the global "
+                             "route's")
+    if not np.array_equal(labels_np, golden):
+        raise AssertionError("CC stripe-route labels differ from the scipy "
+                             "golden")
+    log(f"[12] {int(labels_np.max())} instances, identical to the global "
+        f"route's [5] and to the scipy golden")
+    phase_profile("[13]", pred, padded, h, w, dev, card, stage_ms)
+    return counts
+
+
 def phase_profile(tag, pred, padded, h, w, dev, card, stage_ms):
     """Device busy time per stage (torch.profiler) and the stage's
     heaviest kernels. The idle share is taken against the stage's wall
@@ -773,10 +895,13 @@ def main() -> int:
                                              cc_labels)
     phase_tta(dev, model, model_cpu, card, img)
     stripe_counts = phase_stripe_route(dev, model, card, img, gt, bw)
+    cc_stripe_counts = phase_cc_stripe_route(dev, model, card, img,
+                                             cc_labels)
     for name, row in rows.items():
         # each kernel's launches in the run of the path it was ported for
         row["launches"] = {"fused_ws_sweeps": bw_counts,
-                           "stripe_ws_converge": stripe_counts}.get(
+                           "stripe_ws_converge": stripe_counts,
+                           "stripe_converge": cc_stripe_counts}.get(
                                name, counts)[name]
     print(json.dumps({"kernels": list(rows.values())}))
     print(card_line())

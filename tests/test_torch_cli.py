@@ -121,6 +121,58 @@ def test_cli_stripe_route_matches_predictor(inputs, tmp_path):
         assert a.max() > 3
 
 
+def test_cli_cc_stripe_route_matches_predictor_and_jax_cli(inputs,
+                                                           tmp_path):
+    """--cc_route stripe: the labels of the global route, the port's
+    Predictor on the stripe route, and the JAX CLI's."""
+    ours, theirs = tmp_path / "ours", tmp_path / "theirs"
+    predict_main(["-i", str(inputs), "-o", str(ours), "--model_path", CKPT,
+                  "--device", "cpu", "--cc_route", "stripe"])
+    jax_predict_main(["-i", str(inputs), "-o", str(theirs),
+                      "--model_path", CKPT])
+    model, _ = load_model_for_inference(CKPT, device="cpu")
+    stripe = Predictor(model, device="cpu", cc_route="stripe")
+    glob = Predictor(model, device="cpu")
+    for stem in ("cell_00000", "cell_00001"):
+        a = imread(str(ours / f"{stem}_label.tiff")).astype(np.int32)
+        b = imread(str(theirs / f"{stem}_label.tiff")).astype(np.int32)
+        src = [f for f in os.listdir(inputs) if f.startswith(stem)][0]
+        img = imread(str(inputs / src))
+        np.testing.assert_array_equal(a, stripe.predict(img))
+        np.testing.assert_array_equal(a, glob.predict(img))
+        assert score_pair(b, a)["f1"] >= 0.999
+        assert a.max() > 3
+
+
+def test_cli_unknown_cc_route_exits(inputs, tmp_path):
+    with pytest.raises(SystemExit):
+        predict_main(["-i", str(inputs), "-o", str(tmp_path / "o"),
+                      "--model_path", CKPT, "--device", "cpu",
+                      "--cc_route", "local"])
+
+
+def test_cli_model_name_passes_input_size(inputs, tmp_path, monkeypatch):
+    """--model_name builds the model with --input_size, as the JAX CLI
+    does (cli/predict.py:87-88)."""
+    from cellseg_tpu_torch.cli import predict as cli
+
+    seen = []
+    real = cli.build_model
+
+    def spy(*args, **kw):
+        seen.append(kw.get("input_size"))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(cli, "build_model", spy)
+    predict_main(["-i", str(inputs), "-o", str(tmp_path / "o"),
+                  "--model_path", os.path.dirname(CKPT),
+                  "--checkpoint", os.path.basename(CKPT),
+                  "--model_name", "unet", "--input_size", "192",
+                  "--device", "cpu"])
+    assert seen == [192]
+    assert (tmp_path / "o" / "cell_00000_label.tiff").exists()
+
+
 def test_cli_unported_model_raises(inputs, tmp_path):
     with pytest.raises(NotImplementedError, match="A9"):
         predict_main(["-i", str(inputs), "-o", str(tmp_path / "o"),

@@ -116,6 +116,38 @@ def test_boundary_watershed_matches_jax(kind, h, w, seed):
     assert want.max() > 1
 
 
+@pytest.mark.parametrize("h,w", [(256, 384), (96, 128), (61, 83)])
+def test_decode_cc_stripe_route_matches_jax_and_golden(h, w):
+    """cc_route="stripe": the same labels as the JAX device decode and the
+    scipy golden, whether or not the route's gate admits the shape."""
+    p = _prob_map(h, w, seed=h)
+    want = np.asarray(jdec.decode_interior_prob(jnp.asarray(p)))
+    got = tdec.decode_interior_prob(torch.from_numpy(p), cc_route="stripe")
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(),
+                                  jdec.decode_interior_prob_host(p))
+    assert want.max() > 1
+
+
+@pytest.mark.parametrize("route", ["plain", "stripe"])
+def test_boundary_watershed_cc_stripe_route_matches_jax(route):
+    """The boundary decode with its CC work on the stripe route, on either
+    watershed route: the labels of the global CC route."""
+    p_int, p_bnd = _touching_cells(256, 256, seed=3, n=40)
+    want = tdec.decode_boundary_watershed(torch.from_numpy(p_int),
+                                          torch.from_numpy(p_bnd),
+                                          route=route)
+    got = tdec.decode_boundary_watershed(torch.from_numpy(p_int),
+                                         torch.from_numpy(p_bnd),
+                                         route=route, cc_route="stripe")
+    assert torch.equal(got, want)
+    if route == "plain":
+        np.testing.assert_array_equal(got.numpy(), np.asarray(
+            jdec.decode_boundary_watershed(jnp.asarray(p_int),
+                                           jnp.asarray(p_bnd))))
+    assert int(want.max()) > 1
+
+
 def test_boundary_watershed_splits_touching_cells():
     """Two overlapping disks with a boundary ridge between them: CC on
     the interior merges them, the boundary watershed keeps two cells."""

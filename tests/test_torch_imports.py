@@ -78,6 +78,7 @@ def test_every_kernel_source_is_bound():
         if f.endswith(".py"):
             with open(os.path.join(kdir, f)) as fh:
                 wrappers += fh.read()
-    assert build.sources() == ["scans", "sweeps", "ws_local", "ws_sweeps"]
+    assert build.sources() == ["local_cc", "scans", "sweeps", "ws_local",
+                               "ws_sweeps"]
     for name in build.sources():
         assert f'build.load("{name}"' in wrappers

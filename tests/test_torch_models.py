@@ -199,6 +199,22 @@ def test_unported_models_name_their_roadmap_item(name):
         build_model(name)
 
 
+def test_build_model_leading_parameters_match_jax():
+    """name, num_class and input_size, in the JAX factory's order and with
+    its defaults, so positional calls mean the same in both."""
+    import inspect
+
+    want = list(inspect.signature(jax_build_model).parameters.values())[:3]
+    got = list(inspect.signature(build_model).parameters.values())[:3]
+    assert [(p.name, p.default, p.kind) for p in got] == [
+        (p.name, p.default, p.kind) for p in want]
+    assert [p.name for p in got] == ["name", "num_class", "input_size"]
+    model = build_model("unet", 2, 128, channels=(4, 8))
+    assert model.encoder is not None
+    assert build_model("unet", 2, 128, in_channels=1,
+                       channels=(4, 8)) is not None
+
+
 def test_unknown_model_raises():
     with pytest.raises(ValueError):
         build_model("resnet")

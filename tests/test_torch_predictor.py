@@ -13,7 +13,8 @@ whole 3-class slice against the JAX package, on the CPU.
   move of P(interior) can move a ridge pixel (the decode itself is held
   bit for bit in test_torch_decode.py); the boundary watershed's stripe
   route (the JAX package's TPU route) against the decode of the same
-  probabilities.
+  probabilities; the CC stripe route (`cc_route="stripe"`) against the
+  JAX predictor, as the global route is.
 """
 
 import os
@@ -183,9 +184,10 @@ def _jax_run(jm, jp, img, **opts):
             np.asarray(interior)[:h, :w])
 
 
-def _assert_slice_parity(jm, jp, tm, img, **opts):
+def _assert_slice_parity(jm, jp, tm, img, port_opts=None, **opts):
+    """port_opts: Predictor options of the port alone."""
     want, p_jax = _jax_run(jm, jp, img, **opts)
-    pred = Predictor(tm, device="cpu", **opts)
+    pred = Predictor(tm, device="cpu", **opts, **(port_opts or {}))
     labels, probs, h, w = pred.predict_device(img)
     got = labels.numpy()[:h, :w].astype(np.int32)
     p_port = probs.numpy()[:h, :w]
@@ -266,6 +268,31 @@ def test_stripe_route_predictor_is_its_decode(models):
                                      p[..., 1].contiguous(), route="stripe")
     assert torch.equal(labels, want.to(torch.uint16))
     assert int(want.max()) > 5
+
+
+@pytest.mark.parametrize("opts", [{}, {"decode": "boundary_watershed"}],
+                         ids=["cc", "boundary_watershed"])
+def test_cc_stripe_route_predictor_matches_jax(models, opts):
+    """cc_route="stripe" on a 256x256 canvas (two stripes of 128 rows): the
+    JAX predictor's labels, and the same labels as the global route."""
+    from cellseg_tpu_torch.ops.cc import stripe_route_supported
+
+    jm, jp, tm = models
+    img, _ = make_image(np.random.default_rng(6), 256, n_cells=40)
+    img = img[:200, :240]
+    assert stripe_route_supported(256, 256)
+    got = _assert_slice_parity(jm, jp, tm, img,
+                               port_opts={"cc_route": "stripe"}, **opts)
+    np.testing.assert_array_equal(
+        got, Predictor(tm, device="cpu", **opts).predict(img))
+    assert got.max() > 5
+
+
+def test_unknown_cc_route_raises():
+    with pytest.raises(ValueError, match="route"):
+        Predictor(lambda t: t, device="cpu", cc_route="local")
+    with pytest.raises(ValueError, match="route"):
+        Predictor(lambda t: t, device="cpu", cc_route="plain")
 
 
 def test_unknown_decode_raises():
