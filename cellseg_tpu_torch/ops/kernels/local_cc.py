@@ -14,21 +14,25 @@ Stripe height: the JAX package's (`jax_stripe`, local_cc.py:_h_stripe) is
 32 rows at 2176 columns, a 278 KB int32 plane, more than the 227 KB of
 shared memory a block of the H100 may have. The kernel keeps a stripe's
 labels and mask (5 bytes a pixel) in shared memory for all its rounds, so
-the port's route takes `cc_stripe(h, w)`: the largest multiple of 8 that
-divides h, is at most the JAX stripe, and fits (16 rows at 2176, 32 at
-1024). The route's outer fixed point is the component-min plane, which is
-unique, so the stripe height changes no label. One call at the JAX stripe
-is held to the Pallas kernel by the tests on the CPU; the kernel is held
-to the plain version on the card.
+the port's route takes `cc_stripe(h, w)`: the largest divisor of h from 8
+to the JAX stripe that fits (17 rows at 2176: 128 stripes, one block per
+SM in one wave on the H100's 132 SMs; 32 at 1024). The route's outer fixed
+point is the component-min plane, which is unique, so the stripe height
+changes no label. One call at the JAX stripe is held to the Pallas kernel
+by the tests on the CPU; the kernel is held to the plain version on the
+card.
 
 Bound on the H100: 9 bytes per pixel must move per launch (labels and
 mask in, labels out), against 11 to 20 int32 operations per pixel and
 round, so the operations bound it once the stripes run more than about 8
-rounds. Design: one block of 1024 threads per stripe, state in shared
-memory, column passes by threads and row passes by warps (shuffle
-scans), a change vote per round. This first kernel is latency-bound
-(about 49 us per round and wave at 2176^2, 69x its bound); see
-csrc/local_cc.cu.
+rounds. A stripe is a chain of dependent rounds. Design: one block of
+1024 threads per stripe, state in shared memory, every thread on every
+pass: column passes by threads that own columns, row passes as a raking
+scan (each thread folds a run of adjacent pixels, a warp shuffle scan and
+the row's warp totals give each run its carry), a change vote per round.
+Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py, three
+runs), 2176^2, density 0.5, 16 rounds: 0.42-0.44 ms at connectivity 2,
+19x its bound; see csrc/local_cc.cu.
 
 The plain version runs only for CPU tensors; a CUDA tensor goes through
 the kernel or the call raises.
@@ -47,11 +51,25 @@ from .sweeps import sweep_min_plain
 LAUNCHES = {"stripe_converge": 0}
 
 # dynamic shared memory a block of the H100 may have (227 KB); a stripe
-# takes 5 bytes a pixel (int32 label, uint8 mask)
+# takes 5 bytes a pixel (int32 label, uint8 mask) after 512 bytes of the
+# row scans' warp totals
 SMEM_BYTES = 232448
 BYTES_PER_PX = 5
+SCRATCH_BYTES = 512
+# the smallest stripe height the route takes (the JAX package's smallest)
+MIN_STRIPE = 8
 
-_SIGNATURE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_SIGNATURES = {
+    "cellseg_stripe_converge":
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "cellseg_stripe_converge_occupancy":
+        [ctypes.c_int] * 4 + [ctypes.c_void_p],
+}
+
+
+def stripe_fits(stripe: int, w: int) -> bool:
+    """Whether a stripe's labels and mask fit in a block's shared memory."""
+    return BYTES_PER_PX * stripe * w + SCRATCH_BYTES <= SMEM_BYTES
 
 
 def jax_stripe(h: int, w: int) -> int | None:
@@ -68,19 +86,31 @@ def jax_stripe(h: int, w: int) -> int | None:
 
 
 def cc_stripe(h: int, w: int) -> int | None:
-    """The port's row-stripe height: the largest multiple of 8 that
-    divides h, is at most jax_stripe(h, w), and whose labels and mask fit
-    in a block's shared memory; None where there is none (w above 5,811,
-    or no multiple of 8 divides h)."""
+    """The port's row-stripe height: the largest divisor of h from 8 to
+    jax_stripe(h, w) whose labels and mask fit in a block's shared memory;
+    None where there is none (w above 5,798, or no multiple of 8 divides
+    h). At 2176x2176: 17 rows, 128 stripes, one block each on the H100's
+    132 SMs."""
     top = jax_stripe(h, w) if w > 0 else None
     if top is None:
         return None
-    stripe = min(top, SMEM_BYTES // (BYTES_PER_PX * w) // 8 * 8)
-    while stripe >= 8:
-        if h % stripe == 0:
+    for stripe in range(top, MIN_STRIPE - 1, -1):
+        if h % stripe == 0 and stripe_fits(stripe, w):
             return stripe
-        stripe -= 8
     return None
+
+
+def blocks_per_sm(w: int, stripe: int, connectivity: int = 1,
+                  region: bool = False) -> int:
+    """Blocks of the kernel resident at once on one SM of the current CUDA
+    device for stripes of `stripe` rows of a w-wide plane
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    lib = build.load("local_cc", _SIGNATURES)
+    out = ctypes.c_int(0)
+    err = lib.cellseg_stripe_converge_occupancy(
+        w, stripe, connectivity, int(region), ctypes.addressof(out))
+    build.check(lib, err, "cellseg_stripe_converge_occupancy")
+    return out.value
 
 
 def _stripe_of(h: int, w: int, stripe: int | None) -> int:
@@ -143,9 +173,9 @@ def stripe_converge(lab: torch.Tensor, mask: torch.Tensor,
     lab: int32 (H, W), INF off the mask in plain mode; mask: bool/uint8
     (H, W), the mask, or in region mode the values whose equal runs are
     the segments. stripe (default cc_stripe(H, W)) must divide H; on the
-    card 5 * stripe * W bytes must fit in a block's shared memory. rounds:
-    optional int32 (H // stripe,) tensor that receives the rounds each
-    stripe ran."""
+    card the stripe must fit in a block's shared memory (stripe_fits).
+    rounds: optional int32 (H // stripe,) tensor that receives the rounds
+    each stripe ran."""
     check_inputs(lab, mask)
     if connectivity not in (1, 2) or cap < 0:
         raise ValueError(f"need connectivity 1 or 2 and cap >= 0, got "
@@ -161,10 +191,10 @@ def stripe_converge(lab: torch.Tensor, mask: torch.Tensor,
     if lab.device.type == "cpu":
         return stripe_converge_plain(lab, mask, connectivity, region, cap,
                                      stripe, rounds)
-    if BYTES_PER_PX * stripe * w > SMEM_BYTES:
+    if not stripe_fits(stripe, w):
         raise ValueError(f"a stripe of {stripe}x{w} does not fit in a "
                          f"block's {SMEM_BYTES} bytes of shared memory")
-    lib = build.load("local_cc", {"cellseg_stripe_converge": _SIGNATURE})
+    lib = build.load("local_cc", _SIGNATURES)
     if h == 0 or w == 0:
         return lab.clone()
     out = torch.empty_like(lab)

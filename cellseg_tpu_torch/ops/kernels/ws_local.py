@@ -6,13 +6,22 @@ watershed relaxation (ops/watershed.py:relax_once, neighbours beyond the
 stripe being its padding) until one sweep changes nothing in the stripe or
 `cap` sweeps have run.
 
-Bound on the H100: 29 bytes per pixel must move per launch (17 in, 12 out)
-against 144 operations per masked pixel and sweep, so the operations bound
-it at the tens of sweeps a stripe takes. This first kernel is bound by
-latency: the stripe's double-buffered state (up to 1.5 MB) lives in global
-memory, and one block of 512 threads per stripe, on one SM, walks the
-stripe between two barriers per sweep (a change vote each); measured at
-2176^2, about 141 us per sweep, 28.6x its bound. See csrc/ws_local.cu.
+Bound on the H100: 29 bytes per pixel must move per launch (17 in, 12
+out); the operations needed are 18 per masked pixel and neighbour folded
+in, every neighbour in the first sweep and then only those that changed
+in the sweep before, so the bytes bound it (0.041 ms at 2176^2). A stripe
+is a chain of dependent sweeps, so the design shortens one sweep: a
+thread-block cluster of 16 blocks per stripe, each block a slab of
+columns with its state in shared memory for all sweeps, the slab edges
+exchanged through distributed shared memory, one cluster barrier (with the
+change vote) per sweep, and warps skip the pixels whose 3x3
+neighbourhoods did not change in the last sweep (exact: their state is
+already in the buffer being written). Where a block cannot hold a 16th of
+a stripe's columns, ws_cluster_size returns 0 and the global-memory
+variant runs: one block per stripe, state in global memory. Measured on
+an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py): 5.14 ms at 2176^2
+from the watershed's initial state, 125x its bound. See
+csrc/ws_local.cu.
 
 The plain version runs only for CPU tensors; a CUDA tensor goes through
 the kernel or the call raises.
@@ -29,7 +38,25 @@ from .ws_sweeps import _check_inputs, relax_once_plain
 
 LAUNCHES = {"stripe_ws_converge": 0}
 
-_SIGNATURE = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_SIGNATURES = {
+    "cellseg_stripe_ws_converge":
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "cellseg_ws_cluster_occupancy": [ctypes.c_int] * 4 + [ctypes.c_void_p],
+}
+
+# dynamic shared memory a block of the H100 may have (227 KB)
+SMEM_BYTES = 232448
+# the thread-block cluster the kernel launches: the H100's non-portable
+# maximum, which gives a stripe the most shared memory and SMs
+MAX_CLUSTER = 16
+
+
+def cluster_smem_bytes(stripe: int, cw: int) -> int:
+    """Shared memory of one cluster block whose slab is cw columns of a
+    stripe: 3 flags, both Jacobi buffers of (cost, hops, label) and both
+    dirty planes with a one-cell frame, and the slab's e and mask
+    (csrc/ws_local.cu)."""
+    return 16 + 26 * (stripe + 2) * (cw + 2) + 5 * stripe * cw
 
 
 def ws_stripe(h: int, w: int) -> int | None:
@@ -43,6 +70,34 @@ def ws_stripe(h: int, w: int) -> int | None:
         if stripe < 8:
             return None
     return stripe
+
+
+def ws_cluster_size(h: int, w: int, stripe: int) -> int:
+    """The kernel variant for an (h, w) plane in stripes of `stripe` rows:
+    the blocks of the thread-block cluster per stripe, or 0 for the
+    global-memory variant: 16 where the slab of one of 16 blocks
+    (ceil(w / 16) columns) fits in a block's shared memory, else 0.
+    Decided from the shape alone (h enters only through the stripe, which
+    divides it)."""
+    if cluster_smem_bytes(stripe, -(-w // MAX_CLUSTER)) <= SMEM_BYTES:
+        return MAX_CLUSTER
+    return 0
+
+
+def cluster_occupancy(h: int, w: int, stripe: int | None = None) -> int:
+    """Clusters of ws_cluster_size(h, w, stripe) blocks resident at once on
+    the current CUDA device (cudaOccupancyMaxActiveClusters); 0 where the
+    global-memory variant runs."""
+    stripe = _stripe_of(h, w, stripe)
+    c = ws_cluster_size(h, w, stripe)
+    if c == 0:
+        return 0
+    lib = build.load("ws_local", _SIGNATURES)
+    out = ctypes.c_int(0)
+    err = lib.cellseg_ws_cluster_occupancy(h, w, stripe, c,
+                                           ctypes.addressof(out))
+    build.check(lib, err, "cellseg_ws_cluster_occupancy")
+    return out.value
 
 
 def _stripe_of(h: int, w: int, stripe: int | None) -> int:
@@ -108,20 +163,22 @@ def stripe_ws_converge(e: torch.Tensor, mask: torch.Tensor,
     if e.device.type == "cpu":
         return stripe_ws_converge_plain(e, mask, cost, hops, label, cap,
                                         stripe, sweeps)
-    lib = build.load("ws_local", {"cellseg_stripe_ws_converge": _SIGNATURE})
+    lib = build.load("ws_local", _SIGNATURES)
     if h == 0 or w == 0:
         return cost.clone(), hops.clone(), label.clone()
+    cluster = ws_cluster_size(h, w, stripe)
     out = (torch.empty_like(cost), torch.empty_like(hops),
            torch.empty_like(label))
-    tmp = (torch.empty_like(cost), torch.empty_like(hops),
-           torch.empty_like(label))
+    tmp = ((torch.empty_like(cost), torch.empty_like(hops),
+            torch.empty_like(label)) if cluster == 0 else (None,) * 3)
     with torch.cuda.device(e.device):
         stream = torch.cuda.current_stream(e.device).cuda_stream
         err = lib.cellseg_stripe_ws_converge(
             e.data_ptr(), mask.data_ptr(), cost.data_ptr(), hops.data_ptr(),
-            label.data_ptr(), *(t.data_ptr() for t in out + tmp),
+            label.data_ptr(), *(t.data_ptr() for t in out),
+            *(None if t is None else t.data_ptr() for t in tmp),
             None if sweeps is None else sweeps.data_ptr(), h, w, stripe,
-            cap, stream)
+            cap, cluster, stream)
         build.check(lib, err, "cellseg_stripe_ws_converge")
     LAUNCHES["stripe_ws_converge"] += 1
     return out

@@ -70,19 +70,28 @@ BW_STRIPE_KERNELS = BW_KERNELS + ("stripe_ws_converge",)
 # and the global 3x3 sweep of the 8-conn labeling (no row scan)
 CC_STRIPE_KERNELS = ("stripe_converge", "col_segmented_min_scan",
                      "fused_sweeps")
+# the port's kernels by the names of their CUDA functions, for the
+# profiles (one function serves B1 and B2)
+PROFILE_KERNELS = {"B1+B2": "seg_scan_kernel", "B3": "fused_sweeps_kernel",
+                   "B4": "stripe_converge_kernel", "B5": "stripe_ws_",
+                   "B6": "fused_ws_sweeps_kernel"}
 # int32 operations of one B4 round per pixel: each segmented scan folds
 # forward and backward (a min and a select each) and masks (1), the 8-conn
 # sweep takes 8 mins and a select, a region scan compares for its openness
 # in both directions (2) instead of masking; 1 compare for the change vote
 LOCAL_CC_OPS_PER_PX_ROUND = {(1, False): 2 * 5 + 1, (2, False): 2 * 5 + 9 + 1,
                              (1, True): 2 * 6 + 1}
-# int32/float32 operations of one watershed relaxation sweep per masked
-# pixel: 8 neighbours x (max, 2 compares + add + 2 selects for the hops, 6
-# compares and 4 logic ops for the order, 3 selects)
-WS_OPS_PER_PX_SWEEP = 8 * 18
+# int32/float32 operations of folding one neighbour into a masked pixel's
+# watershed state: max, 2 compares + add + 2 selects for the hops, 6
+# compares and 4 logic ops for the order, 3 selects
+WS_OPS_PER_NEIGHBOUR = 18
 # shapes of the kernel checks, and the side of the timed planes (the
 # main path's padded slide)
 CHECK_SHAPES = [(2176, 2176), (1000, 1537), (4096, 200), (3, 5)]
+# B5 also at the wide planes of its cuda test, and at the stripes just
+# inside (16 blocks) and just outside (global memory) the cluster
+WS_LOCAL_EXTRA = [(4, 20011, 2), (20011, 3, 1), (16, 12360, 8),
+                  (16, 12376, 8)]
 TIMED_SIDE = 2176
 LABYRINTH_SIDE = 1024
 
@@ -161,6 +170,39 @@ def ws_world(rng, h: int, w: int, terrain: str, density: float, dev):
     planes = [e, mask, np.where(seeded, e, BIG).astype(np.float32),
               np.where(seeded, 0, INF_HOPS).astype(np.int32), markers]
     return [torch.from_numpy(p).to(dev) for p in planes]
+
+
+def ws_needed_ops(planes, stripe: int, sweeps) -> int:
+    """int32/float32 operations that `sweeps[i]` Jacobi relaxation sweeps
+    of row stripe i of the watershed state `planes` ([e, mask, cost, hops,
+    label]) need: every neighbour of every masked pixel in the first
+    sweep, then only the neighbours (within the stripe) that changed in
+    the sweep before. The fold is a minimum in a total order, so a
+    neighbour that did not change offers nothing that the pixel's state
+    does not already hold. Replays the sweeps with the plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    from cellseg_tpu_torch.ops.kernels.ws_sweeps import (
+        SHIFTS_8,
+        relax_once_plain,
+    )
+
+    h, w = planes[0].shape
+    n = h // stripe
+    e, m, c, hp, lb = (t.reshape(n, stripe, w) for t in planes)
+    m = m != 0
+    sweeps = sweeps.view(n, 1, 1)
+    folds = 8 * int((m & (sweeps > 0)).sum())
+    for s in range(1, int(sweeps.max())):
+        nc, nh, nl = relax_once_plain(c, hp, lb, e, m)
+        moved = F.pad(((nc != c) | (nh != hp) | (nl != lb)).to(torch.int32),
+                      (1, 1, 1, 1))
+        fresh = sum(moved[:, 1 + dy:1 + dy + stripe, 1 + dx:1 + dx + w]
+                    for dy, dx in SHIFTS_8)
+        folds += int(fresh[m & (sweeps > s)].sum())
+        c, hp, lb = nc, nh, nl
+    return WS_OPS_PER_NEIGHBOUR * folds
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -303,10 +345,13 @@ def phase_kernels(dev):
 
     # B5: the three state planes and the sweeps of every stripe equal
     # (tolerance 0, as B6), at the JAX package's stripe for the shape or,
-    # where it has none, one stripe of the whole height
+    # where it has none, one stripe of the whole height, and at the shapes
+    # that take the other variants
     local_checked = 0
-    for h, w in shapes:
-        stripe = ws_local.ws_stripe(h, w) or h
+    variants = {}
+    for h, w, stripe in ([(h, w, ws_local.ws_stripe(h, w) or h)
+                          for h, w in shapes] + WS_LOCAL_EXTRA):
+        variants[h, w, stripe] = ws_local.ws_cluster_size(h, w, stripe)
         for terrain in terrains:
             for density in (0.5, 0.85):
                 args = ws_world(rng, h, w, terrain, density, dev)
@@ -331,10 +376,13 @@ def phase_kernels(dev):
                                 f"{(h, w)} stripe {stripe} {terrain} density "
                                 f"{density}: {int((g != wt).sum())} pixels")
                     local_checked += 1
+    if set(variants.values()) != {0, ws_local.MAX_CLUSTER}:
+        raise AssertionError(f"the B5 checks miss a variant: {variants}")
     log(f"[2] {local_checked} stripe_ws_converge cases (cap 256/5, "
         f"{'/'.join(terrains)} elevations, mask densities 0.5/0.85) "
         f"bit-equal to the plain version in cost, hops, label and the "
-        f"sweeps per stripe at {shapes} (tolerance 0; max abs err "
+        f"sweeps per stripe at (h, w, stripe): blocks per cluster (0: the "
+        f"global-memory variant) {variants} (tolerance 0; max abs err "
         f"{max_err['stripe_ws_converge']})")
 
     # B4: the labels and the rounds of every stripe equal (tolerance 0),
@@ -391,41 +439,66 @@ def phase_kernels(dev):
     # the watershed in mid-flood (16 sweeps in), mask density 0.85
     ws = ws_world(rng, h, w, "continuous", 0.85, dev)
     ws[2:] = ws_sweeps.fused_ws_sweeps(*ws, k=16)
-    ws_masked = int(ws[1].sum())
     ws_bytes = px * (4 + 1 + 4 + 4 + 4 + 3 * 4)  # 5 planes in, 3 out
     # B5 from the watershed's initial state, as the stripe route's first
-    # launch gets it; its operations are those of the sweeps each stripe
-    # of this input runs (the kernel reports them)
+    # launch gets it; its operations are those that the sweeps each stripe
+    # of this input runs (the kernel reports them) need
     local = ws_world(rng, h, w, "continuous", 0.85, dev)
     stripe = ws_local.ws_stripe(h, w)
     ran = torch.zeros(h // stripe, dtype=torch.int32, device=dev)
     ws_local.stripe_ws_converge(*local, sweeps=ran)
-    masked_per_stripe = local[1].view(h // stripe, -1).sum(1)
-    local_px_sweeps = int((masked_per_stripe * ran).sum())
+    local_ops = ws_needed_ops(local, stripe, ran)
+    every_sweep = int((local[1].view(h // stripe, -1).sum(1) * ran).sum())
+    cluster = ws_local.ws_cluster_size(h, w, stripe)
+    resident = ws_local.cluster_occupancy(h, w, stripe)
     log(f"[2] stripe_ws_converge input at {h}x{w}: {h // stripe} stripes of "
         f"{stripe} rows, sweeps per stripe {int(ran.min())}-"
-        f"{int(ran.max())} (mean {float(ran.float().mean()):.1f})")
-    # B4 at the port's stripe for the plane; its operations are those of
-    # the rounds each stripe of this input runs (the kernel reports them)
+        f"{int(ran.max())} (mean {float(ran.float().mean()):.1f}); "
+        f"{cluster} blocks per cluster, {resident} clusters resident at "
+        f"once (cudaOccupancyMaxActiveClusters); operations needed "
+        f"{local_ops} (every neighbour of every masked pixel in every "
+        f"sweep: {8 * WS_OPS_PER_NEIGHBOUR * every_sweep})")
+
+    def ws_steps(ms, most=int(ran.max()), total=int(ran.sum()),
+                 busy=min(resident, h // stripe)):
+        # the slowest stripe's chain, and one cluster's sweep if every
+        # resident cluster were busy all the time
+        return (f"{ms * 1e3 / most:.2f} us per sweep of the slowest stripe "
+                f"({most} sweeps), {ms * 1e3 * busy / total:.2f} us per "
+                f"sweep of a cluster with {busy} clusters busy")
+
+    # B4 at the port's stripe for the plane, and at 16 rows (logged); its
+    # operations are those of the rounds each stripe of this input runs
+    # (the kernel reports them)
     lcc_stripe = local_cc.cc_stripe(h, w)
-    lcc_ops = {}
-    for conn, region in LOCAL_CC_OPS_PER_PX_ROUND:
-        ran = torch.zeros(h // lcc_stripe, dtype=torch.int32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lcc_ops, lcc_steps = {}, {}
+    for conn, region, st in [(*k, lcc_stripe)
+                             for k in LOCAL_CC_OPS_PER_PX_ROUND] + [
+                                 (2, False, 16)]:
+        ran = torch.zeros(h // st, dtype=torch.int32, device=dev)
         local_cc.stripe_converge(any_lab if region else lab, m, conn, region,
-                                 rounds=ran)
-        lcc_ops[conn, region] = (LOCAL_CC_OPS_PER_PX_ROUND[conn, region]
-                                 * int(ran.sum()) * lcc_stripe * w)
+                                 stripe=st, rounds=ran)
+        lcc_ops[conn, region, st] = (LOCAL_CC_OPS_PER_PX_ROUND[conn, region]
+                                     * int(ran.sum()) * st * w)
+        per_wave = local_cc.blocks_per_sm(w, st, conn, region) * sms
+        waves = -(-(h // st) // per_wave)
         log(f"[2] stripe_converge input at {h}x{w}, connectivity {conn} "
-            f"region {region}: {h // lcc_stripe} stripes of {lcc_stripe} "
-            f"rows, rounds per stripe {int(ran.min())}-{int(ran.max())} "
-            f"(mean {float(ran.float().mean()):.2f}, cap 16)")
+            f"region {region}: {h // st} stripes of {st} rows, rounds per "
+            f"stripe {int(ran.min())}-{int(ran.max())} (mean "
+            f"{float(ran.float().mean()):.2f}, cap 16); {per_wave} stripes "
+            f"per wave on {sms} SMs, {waves} wave(s)")
+        lcc_steps[conn, region, st] = (
+            lambda ms, most=int(ran.max()), waves=waves:
+                f"{ms * 1e3 / (most * waves):.2f} us per round and wave")
     rows = {}
     # (name, configuration, kernel call, plain call, bytes, int32/float32
-    # operations); the first of each name is what its path launches on the
-    # slide and goes into the JSON line, the others are logged (region
-    # scans run in the same decode; k=16 is the phase-2 configuration of
-    # the labyrinth; the watershed launches k=8 but for a shorter last
-    # launch, k=1 is logged for the cost of one sweep)
+    # operations, time per step or None); the first of each name is what
+    # its path launches on the slide and goes into the JSON line, the
+    # others are logged (region scans run in the same decode; k=16 is the
+    # phase-2 configuration of the labyrinth; the watershed launches k=8
+    # but for a shorter last launch, k=1 is logged for the cost of one
+    # sweep; B4 at 16 rows, the stripe of its first design)
     cases = []
     for kw in ({}, {"region": True}):
         region = kw.get("region", False)
@@ -438,42 +511,46 @@ def phase_kernels(dev):
                     kern(inp, m, **kw),
                 lambda inp=inp, dim=dim, region=region:
                     scans.segmented_min_scan_plain(inp, m, dim, region),
-                cc_bytes, 6 * px))
+                cc_bytes, 6 * px, None))
         if not region:
             cases.append((
                 "fused_sweeps", {"k": 1, "connectivity": 2},
                 lambda: sweeps.fused_sweeps(lab, m, 1, 2),
                 lambda: sweeps.fused_sweeps_plain(lab, m, 1, 2),
-                cc_bytes, 9 * px))
+                cc_bytes, 9 * px, None))
     cases.append((
         "fused_sweeps", {"k": 16, "connectivity": 2},
         lambda: sweeps.fused_sweeps(lab, m, 16, 2),
         lambda: sweeps.fused_sweeps_plain(lab, m, 16, 2),
-        cc_bytes, 16 * 9 * px))
+        cc_bytes, 16 * 9 * px, None))
     for k in (8, 1):
         cases.append((
             "fused_ws_sweeps", {"k": k},
             lambda k=k: ws_sweeps.fused_ws_sweeps(*ws, k=k),
             lambda k=k: ws_sweeps.fused_ws_sweeps_plain(*ws, k=k),
-            ws_bytes, WS_OPS_PER_PX_SWEEP * ws_masked * k))
+            ws_bytes,
+            ws_needed_ops(ws, h, torch.full((1,), k, device=dev)), None))
     # the 8-conn labeling first: the decode's last and largest labeling
-    for conn, region in ((2, False), (1, False), (1, True)):
+    for conn, region, st in ((2, False, lcc_stripe), (1, False, lcc_stripe),
+                             (1, True, lcc_stripe), (2, False, 16)):
         inp = any_lab if region else lab
         cases.append((
             "stripe_converge",
             {"connectivity": conn, "region": region, "cap": 16,
-             "stripe": lcc_stripe},
-            lambda inp=inp, c=conn, r=region:
-                local_cc.stripe_converge(inp, m, c, r),
-            lambda inp=inp, c=conn, r=region:
-                local_cc.stripe_converge_plain(inp, m, c, r),
-            cc_bytes, lcc_ops[conn, region]))
+             "stripe": st},
+            lambda inp=inp, c=conn, r=region, st=st:
+                local_cc.stripe_converge(inp, m, c, r, stripe=st),
+            lambda inp=inp, c=conn, r=region, st=st:
+                local_cc.stripe_converge_plain(inp, m, c, r, stripe=st),
+            cc_bytes, lcc_ops[conn, region, st],
+            lcc_steps[conn, region, st]))
     cases.append((
-        "stripe_ws_converge", {"cap": 256, "stripe": stripe},
+        "stripe_ws_converge", {"cap": 256, "stripe": stripe,
+                               "cluster": cluster},
         lambda: ws_local.stripe_ws_converge(*local),
         lambda: ws_local.stripe_ws_converge_plain(*local),
-        ws_bytes, WS_OPS_PER_PX_SWEEP * local_px_sweeps))
-    for name, kw, kern, plain, nbytes, ops in cases:
+        ws_bytes, local_ops, ws_steps))
+    for name, kw, kern, plain, nbytes, ops, steps in cases:
         ms = cuda_ms(kern)
         plain_ms = cuda_ms(plain, iters=3 if name == "stripe_ws_converge"
                            else 5, warmup=1)
@@ -482,7 +559,8 @@ def phase_kernels(dev):
         bound = max(bytes_ms, ops_ms)
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
         log(f"[2] {name} {kw} at {h}x{w}: {ms:.4f} ms, bound {bound:.4f} ms "
-            f"({bound_by}), plain version {plain_ms:.4f} ms")
+            f"({bound_by}), plain version {plain_ms:.4f} ms"
+            + (f"; {steps(ms)}" if steps else ""))
         if name not in rows:
             rows[name] = {
                 "name": name, "route": "cuda", "source": SOURCES[name],
@@ -868,6 +946,17 @@ def phase_profile(tag, pred, padded, h, w, dev, card, stage_ms):
                 + "; ".join(f"{e.key[:48]} x{e.count} "
                             f"{e.self_device_time_total / 1e3:.2f} ms"
                             for e in top[:5]))
+            ours = {}
+            for label, fn_name in PROFILE_KERNELS.items():
+                hits = [e for e in kernels if fn_name in e.key]
+                if hits:
+                    ours[label] = (
+                        sum(e.count for e in hits),
+                        sum(e.self_device_time_total for e in hits) / 1e3)
+            if ours:
+                log(f"{tag} {name}: the port's kernels, device time: "
+                    + ", ".join(f"{k} x{n} {t:.2f} ms"
+                                for k, (n, t) in ours.items()))
 
 
 def main() -> int:

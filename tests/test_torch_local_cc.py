@@ -71,16 +71,20 @@ def cuda_device():
 
 
 def test_stripe_heights():
-    """jax_stripe is the JAX package's; cc_stripe is at most it, a
-    multiple of 8 that divides H, and fits in a block's shared memory."""
+    """jax_stripe is the JAX package's; cc_stripe is the largest divisor of
+    H from 8 to it that fits in a block's shared memory."""
     for h, w in [(128, 2048), (256, 1024), (16, 128), (2176, 2176),
                  (1024, 1024), (256, 384), (48, 128), (200, 4096)]:
         assert local_cc.jax_stripe(h, w) == _h_stripe(h, w)
         s = local_cc.cc_stripe(h, w)
-        assert s is not None and s % 8 == 0 and h % s == 0
+        assert s is not None and s >= 8 and h % s == 0
         assert s <= _h_stripe(h, w)
+        assert local_cc.stripe_fits(s, w)
         assert local_cc.BYTES_PER_PX * s * w <= local_cc.SMEM_BYTES
-    assert local_cc.cc_stripe(2176, 2176) == 16
+        assert not any(h % t == 0 and local_cc.stripe_fits(t, w)
+                       for t in range(s + 1, _h_stripe(h, w) + 1))
+    # 2176 = 17 x 128: 128 stripes of 17 rows, one block each on 132 SMs
+    assert local_cc.cc_stripe(2176, 2176) == 17
     assert local_cc.cc_stripe(1024, 1024) == 32
     assert local_cc.cc_stripe(128, 2048) == 16
     assert local_cc.cc_stripe(2048, 5760) == 8
@@ -326,12 +330,16 @@ def test_stripe_route_iterations_stop_at_max_iters(connectivity,
 @pytest.mark.cuda
 def test_local_cc_kernel_matches_plain_on_card(cuda_device):
     """Every mode, densities from sparse to dense, binding and loose caps,
-    arbitrary labels off the mask, ragged widths and 1-row stripes: the
-    labels and the rounds per stripe equal."""
+    arbitrary labels off the mask, ragged widths, 1-row stripes, rows
+    whose threads straddle warps (17, 24 and 3 rows), and a stripe of more
+    rows than the block has threads: the labels and the rounds per stripe
+    equal."""
     rng = np.random.default_rng(0)
-    cases = [(2176, 2176, None), (1024, 1024, None), (256, 384, None),
-             (2048, 5760, None), (64, 200, 8), (24, 1000, 24), (3, 5, 3),
-             (1, 1, 1), (5, 33, 1)]
+    cases = [(2176, 2176, None), (2176, 2176, 16), (1024, 1024, None),
+             (256, 384, None), (2048, 5760, None), (64, 200, 8),
+             (24, 1000, 24), (3, 5, 3), (1, 1, 1), (5, 33, 1),
+             (1100, 7, 1100)]
+    assert local_cc.cc_stripe(2176, 2176) == 17
     for h, w, stripe in cases:
         n = h // (stripe or local_cc.cc_stripe(h, w))
         for density in (0.1, 0.5, 0.9):

@@ -172,11 +172,44 @@ def test_cpu_tensors_never_count_as_launches():
     assert launch_counts()["stripe_ws_converge"] == 0
 
 
+# (h, w, stripe) -> the kernel variant ws_cluster_size picks: blocks of
+# the cluster per stripe, 0 for the global-memory variant. Planes narrower
+# than 16 columns leave some blocks of the cluster without a column.
+# 12360 columns in stripes of 8 rows are the widest whose slab of 16
+# blocks fits in 227 KB (773 columns, 232,436 bytes); 16 columns more do
+# not.
+PLANS = {(2176, 2176, 16): 16, (1000, 1537, 40): 16, (4096, 200, 128): 16,
+         (3, 5, 3): 16, (1, 1, 1): 16, (4, 20011, 2): 16, (20011, 3, 1): 16,
+         (64, 200, 16): 16, (64, 400, 16): 16, (64, 800, 16): 16,
+         (16, 12360, 8): 16, (16, 12376, 8): 0}
+
+
+@pytest.mark.parametrize("h,w,stripe", list(PLANS))
+def test_cluster_size_rule(h, w, stripe):
+    """The variant is a function of the shape: 16 blocks where the slab of
+    one of them fits in a block's shared memory, else 0 (global
+    memory)."""
+    c = ws_local.ws_cluster_size(h, w, stripe)
+    assert c == PLANS[h, w, stripe]
+    fits = ws_local.cluster_smem_bytes(
+        stripe, -(-w // ws_local.MAX_CLUSTER)) <= ws_local.SMEM_BYTES
+    assert c == (ws_local.MAX_CLUSTER if fits else 0)
+
+
+def test_cluster_size_rule_covers_every_variant():
+    assert set(PLANS.values()) == {0, ws_local.MAX_CLUSTER}
+    # the route's own stripes at the JAX package's stripe height
+    assert ws_local.ws_cluster_size(2176, 2176, ws_local.ws_stripe(
+        2176, 2176)) == 16
+    assert ws_local.cluster_smem_bytes(16, 136) == 75480
+
+
 @pytest.mark.cuda
 def test_ws_local_kernel_matches_plain_on_card(cuda_device):
-    for h, w, stripe in [(2176, 2176, None), (1000, 1537, None),
-                         (4096, 200, None), (3, 5, 3), (1, 1, 1),
-                         (4, 20011, 2), (20011, 3, 1)]:
+    """Every variant and cluster size the shape rule picks (PLANS),
+    among them the stripe just inside and the one just outside the
+    largest cluster: all three planes and the sweeps per stripe equal."""
+    for h, w, stripe in [(2176, 2176, None), *PLANS]:
         for terrain in TERRAINS:
             for density in (0.5, 0.85):
                 planes = _world(h, w, max(2, h * w // 4000), seed=h + w,
